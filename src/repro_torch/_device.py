@@ -1,0 +1,30 @@
+"""Device choice for the port's entry points: the card, unless told otherwise.
+
+Every entry point (:class:`repro_torch.core.TriangleCounter`, the CLI)
+runs on ``cuda`` by default and raises when no card is visible.  The CPU
+is used only when the caller asks for it — the tests do — so a run never
+lands on the host without saying so.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``torch.device`` for ``device``; ``None`` means ``cuda``.
+
+    Raises ``RuntimeError`` when CUDA is requested (explicitly or by
+    default) and ``torch.cuda.is_available()`` is false.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA card by default, and "
+            "torch.cuda.is_available() is False here; pass device='cpu' "
+            "(CLI: --device cpu) to run on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; expected 'cuda' or 'cpu'")
+    return dev

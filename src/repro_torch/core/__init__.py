@@ -1,0 +1,108 @@
+"""Core library of the port: the paper's parallel *forward* algorithm.
+
+Public API::
+
+    from repro_torch.core import TriangleCounter, count_triangles
+
+    tc = TriangleCounter(method="auto", max_wedge_chunk=1 << 22)  # on the card
+    t = tc.count(edge_array)                                     # exact
+    t = count_triangles(edge_array, method="pallas", device="cpu")
+
+Only the ported names are exported; approximate counting, tuning,
+incremental and distributed counting arrive with later slices.
+"""
+from .preprocess import (
+    OrientedCSR,
+    preprocess,
+    preprocess_host_offload,
+    oriented_from_undirected_csr,
+    oriented_from_compressed,
+    degrees,
+)
+from .engine import (
+    TriangleCounter,
+    EngineStats,
+    choose_method,
+    resolve_method,
+    plan_edge_chunks,
+    accumulate_partials,
+    prepare_oriented,
+    degree_histogram,
+    search_steps,
+    chunk_count_kernel,
+    chunk_per_node_kernel,
+    chunk_support_kernel,
+    KernelBackend,
+    WedgeBackend,
+    PanelBackend,
+    PallasBackend,
+    register_backend,
+    make_backend,
+    resolve_backend,
+    make_workload,
+    workload_from_csr,
+    run_workload,
+)
+from .count import (
+    WedgePlan,
+    make_wedge_plan,
+    count_triangles,
+    bucketize_edges,
+    gather_panels,
+    panel_intersect_count,
+)
+from .clustering import (
+    local_clustering_coefficient,
+    average_clustering_coefficient,
+    transitivity,
+    node_triangle_features,
+)
+from .baseline import (
+    count_triangles_sequential,
+    count_triangles_numpy,
+    count_triangles_bruteforce,
+)
+
+__all__ = [
+    "TriangleCounter",
+    "EngineStats",
+    "choose_method",
+    "resolve_method",
+    "plan_edge_chunks",
+    "accumulate_partials",
+    "prepare_oriented",
+    "degree_histogram",
+    "search_steps",
+    "chunk_count_kernel",
+    "chunk_per_node_kernel",
+    "chunk_support_kernel",
+    "KernelBackend",
+    "WedgeBackend",
+    "PanelBackend",
+    "PallasBackend",
+    "register_backend",
+    "make_backend",
+    "resolve_backend",
+    "make_workload",
+    "workload_from_csr",
+    "run_workload",
+    "OrientedCSR",
+    "preprocess",
+    "preprocess_host_offload",
+    "oriented_from_undirected_csr",
+    "oriented_from_compressed",
+    "degrees",
+    "WedgePlan",
+    "make_wedge_plan",
+    "count_triangles",
+    "bucketize_edges",
+    "gather_panels",
+    "panel_intersect_count",
+    "local_clustering_coefficient",
+    "average_clustering_coefficient",
+    "transitivity",
+    "node_triangle_features",
+    "count_triangles_sequential",
+    "count_triangles_numpy",
+    "count_triangles_bruteforce",
+]

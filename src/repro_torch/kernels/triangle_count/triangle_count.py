@@ -1,0 +1,128 @@
+"""CUDA kernel family: sorted-set intersection of neighbor panels.
+
+The Hopper counterpart of the reference's Pallas family
+(``repro/kernels/triangle_count/triangle_count.py``).  One CUDA C++
+kernel (``csrc/intersect.cu``), one warp per panel row, templated on the
+element type and on which outputs it writes, serves all three members:
+
+``intersect_count_cuda``
+    the per-row match count (replaces ``intersect_count_pallas``);
+``intersect_per_node_cuda``
+    adds the arm attribution, one slot per u-neighbor (replaces
+    ``intersect_per_node_pallas``);
+``intersect_support_cuda``
+    adds the closure attribution, one slot per v-neighbor (replaces
+    ``intersect_support_pallas``).
+
+The TPU kernel reduces an ``Lu × Lv`` equality cube per row to keep its
+vector unit full.  The rows are sorted, so here each lane binary-searches
+its ``a`` entries in ``b``'s valid prefix: ``Lu·log₂Lv`` compares per row,
+and the kernel is bound by reading the two panels.
+
+Each wrapper checks its inputs, allocates its outputs, launches on the
+current stream and raises on a launch error; it counts its launches in
+:data:`launches`.  The wrappers take CUDA tensors only — the CPU path is
+:mod:`.ops`, which sends CPU tensors to the plain versions in :mod:`.ref`.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "intersect_count_cuda",
+    "intersect_per_node_cuda",
+    "intersect_support_cuda",
+    "launches",
+    "reset_launches",
+    "DEFAULT_WARPS_PER_BLOCK",
+]
+
+# one count per kernel, raised by one at each launch (never for B == 0)
+launches = {"intersect_count": 0, "intersect_per_node": 0, "intersect_support": 0}
+
+DEFAULT_WARPS_PER_BLOCK = 8
+_MODES = {"intersect_count": 0, "intersect_per_node": 1, "intersect_support": 2}
+_ELEM_BYTES = {torch.int32: 4, torch.int16: 2}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for k in launches:
+        launches[k] = 0
+
+
+def _check(a: torch.Tensor, b: torch.Tensor) -> None:
+    for name, t in (("a", a), ("b", b)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if not t.is_cuda:
+            raise ValueError(f"{name} lies on {t.device}; the CUDA kernels take CUDA tensors")
+        if t.dim() != 2:
+            raise ValueError(f"{name} must be rank 2 (B, L), got shape {tuple(t.shape)}")
+        if t.dtype not in _ELEM_BYTES:
+            raise TypeError(f"{name} has dtype {t.dtype}; expected int32 or int16")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if a.dtype != b.dtype:
+        raise TypeError(f"a and b differ in dtype ({a.dtype} vs {b.dtype})")
+    if a.device != b.device:
+        raise ValueError(f"a and b lie on different devices ({a.device} vs {b.device})")
+    if a.shape[0] != b.shape[0]:
+        raise ValueError(f"a and b differ in rows ({a.shape[0]} vs {b.shape[0]})")
+
+
+def _warps(tiles) -> int:
+    """Rows (warps) per block: ``tiles[0]`` clamped to 1..32, else the default."""
+    if tiles is None:
+        return DEFAULT_WARPS_PER_BLOCK
+    return max(1, min(int(tiles[0]), 32))
+
+
+def _launch(kind: str, a, b, count, arm, closure, tiles) -> None:
+    from ._build import load_library
+
+    n, lu = a.shape
+    lv = b.shape[1]
+    if n == 0:
+        return
+    lib = load_library()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.tc_intersect_launch(
+            _ELEM_BYTES[a.dtype], _MODES[kind], a.data_ptr(), b.data_ptr(),
+            n, lu, lv,
+            count.data_ptr(),
+            arm.data_ptr() if arm is not None else None,
+            closure.data_ptr() if closure is not None else None,
+            _warps(tiles), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{kind} kernel launch failed: cudaError_t {err}")
+    launches[kind] += 1
+
+
+def intersect_count_cuda(a: torch.Tensor, b: torch.Tensor, tiles=None) -> torch.Tensor:
+    """(B,) int32 match counts between −1-padded sorted rows of a and b."""
+    _check(a, b)
+    count = torch.empty((a.shape[0],), dtype=torch.int32, device=a.device)
+    _launch("intersect_count", a, b, count, None, None, tiles)
+    return count
+
+
+def intersect_per_node_cuda(a: torch.Tensor, b: torch.Tensor, tiles=None):
+    """``(count (B,), arm (B, Lu))``; ``arm`` is 0 on padding."""
+    _check(a, b)
+    count = torch.empty((a.shape[0],), dtype=torch.int32, device=a.device)
+    arm = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    _launch("intersect_per_node", a, b, count, arm, None, tiles)
+    return count, arm
+
+
+def intersect_support_cuda(a: torch.Tensor, b: torch.Tensor, tiles=None):
+    """``(count (B,), arm (B, Lu), closure (B, Lv))`` — the support outputs."""
+    _check(a, b)
+    count = torch.empty((a.shape[0],), dtype=torch.int32, device=a.device)
+    arm = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    closure = torch.empty(b.shape, dtype=torch.int32, device=a.device)
+    _launch("intersect_support", a, b, count, arm, closure, tiles)
+    return count, arm, closure

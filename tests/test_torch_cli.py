@@ -1,0 +1,108 @@
+"""Port parity: ``python -m repro_torch.launch.count`` against the reference CLI.
+
+Karate gives 45 with the same JSON key set as ``python -m
+repro.launch.count``; a ``.tricsr`` cache written by either package loads
+in the other.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.graphs.io import ingest as ref_ingest  # noqa: E402
+from repro.graphs.io import load_tricsr as ref_load  # noqa: E402
+from repro_torch.core import TriangleCounter  # noqa: E402
+from repro_torch.graphs.io import ingest as port_ingest  # noqa: E402
+from repro_torch.graphs.io import load_tricsr as port_load  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KARATE = os.path.join(REPO, "tests", "data", "karate.txt")
+
+
+def run_cli(module, *args):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + env.get("PYTHONPATH", "")
+    env["JAX_PLATFORMS"] = "cpu"
+    return subprocess.run([sys.executable, "-m", module, *args], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=600)
+
+
+def keys(obj, prefix=""):
+    """Every key path of a JSON object whose values are fixed by the schema."""
+    out = set()
+    for k, v in obj.items():
+        out.add(prefix + k)
+        if isinstance(v, dict) and k not in ("counters",):
+            out |= keys(v, prefix + k + ".")
+    return out
+
+
+def test_karate_cli_matches_reference_keys(tmp_path):
+    common = ["--input", KARATE, "--json", "--transitivity", "--clustering-summary"]
+    port = run_cli("repro_torch.launch.count", *common, "--cache-dir", str(tmp_path / "p"),
+                   "--device", "cpu")
+    ref = run_cli("repro.launch.count", *common, "--cache-dir", str(tmp_path / "r"))
+    assert port.returncode == 0, port.stderr
+    assert ref.returncode == 0, ref.stderr
+    p = json.loads(port.stdout.strip().splitlines()[-1])
+    r = json.loads(ref.stdout.strip().splitlines()[-1])
+    assert p["triangles"] == r["triangles"] == 45
+    assert keys(p) == keys(r)
+    assert p["transitivity"] == r["transitivity"]
+    assert p["clustering"] == r["clustering"]
+    assert p["graph"] == r["graph"]
+
+
+def test_tricsr_written_by_either_package_loads_in_the_other(tmp_path):
+    ref_csr, ref_stats = ref_ingest(KARATE, cache_dir=tmp_path / "r")
+    port_csr, port_stats = port_ingest(KARATE, cache_dir=tmp_path / "p")
+    r_bytes = open(ref_stats.cache_path, "rb").read()
+    p_bytes = open(port_stats.cache_path, "rb").read()
+    assert r_bytes == p_bytes
+    from_ref = port_load(ref_stats.cache_path)
+    from_port = ref_load(port_stats.cache_path)
+    np.testing.assert_array_equal(from_ref.row_offsets, ref_csr.row_offsets)
+    np.testing.assert_array_equal(from_ref.col, ref_csr.col)
+    np.testing.assert_array_equal(from_port.col, port_csr.col)
+    assert TriangleCounter(device="cpu").count(from_ref) == 45
+
+
+@pytest.mark.parametrize("flag", [["--distributed"], ["--autotune"],
+                                  ["--tile-cache", "tiles.json"],
+                                  ["--method", "distributed"]])
+def test_cli_not_ported_flags_fail_cleanly(tmp_path, monkeypatch, capsys, flag):
+    from repro_torch.launch import count as cli
+
+    monkeypatch.setattr(sys, "argv", ["count", "--input", KARATE, "--device", "cpu",
+                                      "--cache-dir", str(tmp_path), *flag])
+    with pytest.raises(SystemExit) as exc:
+        cli.main()
+    assert exc.value.code != 0
+    assert "not yet ported" in capsys.readouterr().err
+    assert not any(tmp_path.iterdir())  # stopped before any ingest
+
+
+def test_cli_trace_export_validates(tmp_path, monkeypatch, capsys):
+    """``--trace`` writes a Chrome trace with one span per chunk launch."""
+    from repro_torch import obs
+    from repro_torch.launch import count as cli
+
+    out = tmp_path / "trace.json"
+    monkeypatch.setattr(sys, "argv", ["count", "--input", KARATE, "--device", "cpu",
+                                      "--cache-dir", str(tmp_path), "--method", "pallas",
+                                      "--max-wedge-chunk", "64", "--json",
+                                      "--trace", str(out)])
+    cli.main()
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["triangles"] == 45
+    trace = json.loads(out.read_text())
+    assert obs.validate_chrome_trace(trace) > 0
+    chunk_spans = [e for e in trace["traceEvents"] if e.get("name") == "count.chunk"]
+    assert len(chunk_spans) == result["stats"]["n_chunks"] > 1
+    assert trace["otherData"]["env"]["torch"] == torch.__version__
+    assert not obs.enabled()

@@ -1,0 +1,201 @@
+"""Port parity: repro_torch's TriangleCounter equals the reference's.
+
+Every method (``wedge_bsearch``, ``panel``, ``pallas``, ``auto``) at an
+unbounded and a small budget, on ``small_graphs`` and karate: count,
+per-node incidences and per-edge support are equal integers (tolerance 0);
+clustering and transitivity are numpy formulas of those integers and are
+therefore equal too.  kron-13 (T = 1,180,718) runs through wedge_bsearch
+and pallas.  Planning invariants, the uint64 fold and ``last_stats`` are
+mirrored from tests/test_engine.py.
+"""
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core import TriangleCounter as RefCounter  # noqa: E402
+from repro.graphs import kronecker_rmat  # noqa: E402
+from repro.graphs.io import ingest  # noqa: E402
+from repro_torch.core import engine as port_engine  # noqa: E402
+from repro_torch.core import TriangleCounter, count_triangles  # noqa: E402
+from repro_torch.core.engine import accumulate_partials, plan_edge_chunks  # noqa: E402
+
+KARATE = os.path.join(os.path.dirname(__file__), "data", "karate.txt")
+T13 = 1_180_718
+METHODS = ("wedge_bsearch", "panel", "pallas", "auto")
+SHARED_STATS = ("method", "resolved_method", "n_chunks", "peak_wedge_buffer",
+                "wedge_budget", "total_wedges", "n_directed_edges", "fallback_reason")
+
+
+@pytest.fixture(scope="module")
+def graphs(small_graphs):
+    return {**small_graphs, "karate": ingest(KARATE)[0].edge_array()}
+
+
+def assert_stats_equal(ref, port):
+    for f in SHARED_STATS:
+        assert getattr(port, f) == getattr(ref, f), f
+    assert set(port.timings) == set(ref.timings)
+
+
+@pytest.fixture(scope="module")
+def reference_results(graphs):
+    """The reference's five results per graph, computed once.
+
+    Its own tests pin every backend and every budget bit-identical, so
+    they come from its unchunked wedge schedule; each port method and
+    budget is held against them.
+    """
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            e = graphs[name]
+            ref = RefCounter(method="wedge_bsearch")
+            cache[name] = (ref.count(e), ref.per_node(e), ref.edge_support(e),
+                           ref.clustering(e), ref.transitivity(e))
+        return cache[name]
+
+    return get
+
+
+@pytest.mark.parametrize("budget", [None, 48])
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("name", ["er", "kron", "ws", "triangle", "karate"])
+def test_every_workload_matches_reference(graphs, reference_results, name, method, budget):
+    edges = graphs[name]
+    count, per_node, support, clustering, trans = reference_results(name)
+    port = TriangleCounter(method=method, max_wedge_chunk=budget, device="cpu")
+
+    assert port.count(edges) == count
+    if method != "pallas":  # the reference's pallas stats: test below
+        ref = RefCounter(method=method, max_wedge_chunk=budget)
+        ref.count(edges)
+        assert_stats_equal(ref.last_stats, port.last_stats)
+    assert port.last_stats.method == port.last_stats.resolved_method != "auto"
+    np.testing.assert_array_equal(port.per_node(edges), per_node)
+    got_support = port.edge_support(edges)
+    np.testing.assert_array_equal(got_support, support)
+    assert got_support.sum() == 3 * count
+    np.testing.assert_array_equal(port.clustering(edges), clustering)
+    assert port.transitivity(edges) == trans
+
+
+def test_pallas_stats_match_reference_pallas(graphs):
+    """The kernel backend's plan is the reference's pallas plan."""
+    for budget in (None, 48):
+        ref = RefCounter(method="pallas", max_wedge_chunk=budget)
+        port = TriangleCounter(method="pallas", max_wedge_chunk=budget, device="cpu")
+        assert port.count(graphs["kron"]) == ref.count(graphs["kron"])
+        assert_stats_equal(ref.last_stats, port.last_stats)
+
+
+@pytest.fixture(scope="module")
+def kron13():
+    edges = kronecker_rmat(13, seed=0)
+    return edges, RefCounter(method="wedge_bsearch", max_wedge_chunk=1 << 16).count(edges)
+
+
+@pytest.mark.parametrize("method,budget", [("wedge_bsearch", None),
+                                           ("wedge_bsearch", 1 << 16),
+                                           ("pallas", 1 << 16)])
+def test_kron13(kron13, method, budget):
+    edges, ref_count = kron13
+    assert ref_count == T13
+    port = TriangleCounter(method=method, max_wedge_chunk=budget, device="cpu")
+    assert port.count(edges) == T13
+    assert port.last_stats.method == method
+
+
+def test_plan_edge_chunks_invariants():
+    rng = np.random.default_rng(0)
+    reps = rng.integers(0, 50, size=500)
+    for budget in [None, 10_000, 1_000, 120, 49, 1]:
+        bounds, eff = plan_edge_chunks(reps, budget)
+        assert bounds[0][0] == 0 and bounds[-1][1] == len(reps)
+        for (a0, a1), (b0, b1) in zip(bounds, bounds[1:]):
+            assert a1 == b0
+        for s, t in bounds:
+            assert reps[s:t].sum() <= eff
+        if budget is not None:
+            assert eff >= min(budget, int(reps.max()))
+
+
+def test_uint64_accumulation_regression():
+    near_max = np.int32(2**31 - 1)
+    assert accumulate_partials([near_max] * 4) == 4 * (2**31 - 1)
+    parts = [np.array([near_max, near_max], np.int32), np.int32(7), np.array([], np.int32)]
+    assert accumulate_partials(parts) == 2 * (2**31 - 1) + 7
+    tensors = [torch.full((3,), 2**31 - 1, dtype=torch.int32), torch.zeros(0, dtype=torch.int32)]
+    assert accumulate_partials(tensors) == 3 * (2**31 - 1)
+
+
+def test_last_stats_cleared_per_call(graphs):
+    tc = TriangleCounter(method="wedge_bsearch", max_wedge_chunk=48, device="cpu")
+    tc.count(graphs["kron"])
+    first = tc.last_stats
+    assert first.n_chunks > 1 and set(first.timings) == {"preprocess", "plan", "execute", "fold"}
+    assert tc.count(np.zeros((0, 2), np.int32)) == 0
+    assert tc.last_stats.n_chunks == 0 and tc.last_stats.total_wedges == 0
+    assert dataclasses.replace(first) == first
+
+
+def test_auto_dispatch_by_device():
+    kw = dict(max_out_degree=845, mean_out_degree=15.2)
+    assert port_engine.choose_method(**kw, backend="cuda") == "pallas"
+    assert port_engine.choose_method(**kw, backend="cpu") == "wedge_bsearch"
+    assert port_engine.choose_method(max_out_degree=5000, mean_out_degree=15.0,
+                                     backend="cuda") == "wedge_bsearch"
+    assert port_engine.choose_method(max_out_degree=30, mean_out_degree=10.0) == "panel"
+
+
+def test_not_ported_paths_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TriangleCounter(method="distributed", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_engine.make_backend("distributed")
+    with pytest.raises(ValueError):
+        TriangleCounter(method="bogus", device="cpu")
+    with pytest.raises(ValueError):
+        TriangleCounter(max_wedge_chunk=0, device="cpu")
+
+
+def test_facade_routes_chunking(graphs):
+    edges = graphs["ws"]
+    want = RefCounter().count(edges)
+    assert count_triangles(edges, max_wedge_chunk=33, device="cpu") == want
+
+
+def test_oriented_csr_input_is_reused(graphs):
+    from repro_torch.core import prepare_oriented
+
+    csr = prepare_oriented(graphs["kron"], device="cpu")
+    tc = TriangleCounter(method="pallas", max_wedge_chunk=200, device="cpu")
+    assert tc.count(csr) == RefCounter().count(graphs["kron"])
+
+
+def test_capability_fallback_is_loud_and_not_sticky(graphs, monkeypatch):
+    """A registered count-only backend: per-node falls back to the wedge
+    schedule with a reason and a warning; the next count clears it."""
+
+    class CountOnly(port_engine.PallasBackend):
+        name = "count_only"
+        capabilities = frozenset({"count"})
+
+    monkeypatch.setitem(port_engine._BACKEND_FACTORIES, "count_only",
+                        lambda widths=port_engine.DEFAULT_WIDTHS, **_: CountOnly(widths))
+    monkeypatch.setattr(port_engine, "_warned_fallbacks", set())
+    edges = graphs["kron"]
+    want = RefCounter().per_node(edges)
+    tc = TriangleCounter(method="count_only", device="cpu")
+    with pytest.warns(RuntimeWarning, match="no 'per_node' kernel"):
+        np.testing.assert_array_equal(tc.per_node(edges), want)
+    assert tc.last_stats.method == "wedge_bsearch"
+    assert tc.last_stats.resolved_method == "count_only"
+    assert "fell back" in tc.last_stats.fallback_reason
+    assert tc.count(edges) == int(want.sum()) // 3
+    assert tc.last_stats.fallback_reason is None
+    assert tc.last_stats.method == "count_only"

@@ -1,0 +1,137 @@
+"""Port parity: the intersection kernel family's wrappers on CPU tensors.
+
+``repro_torch.kernels.triangle_count.ops`` sends CPU tensors to the plain
+PyTorch versions; they must equal the reference's Pallas kernels run in
+interpret mode, bit for bit, on the reference test's shapes and dtypes,
+all-padding rows and ``tiles=`` overrides.  The CUDA kernels themselves
+run only on a card (``chip_smoke.py``, and the ``cuda``-marked test here).
+"""
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.triangle_count import (  # noqa: E402
+    intersect_count_pallas,
+    intersect_per_node_pallas,
+    intersect_support_pallas,
+)
+from repro_torch.kernels.triangle_count import ops, ref, triangle_count  # noqa: E402
+
+SHAPES = [(1, 8, 8), (5, 16, 64), (32, 128, 128), (9, 256, 1024), (2, 2048, 128),
+          (64, 64, 32)]
+
+
+def random_panels(rng, b, l, dtype):
+    """Sorted, −1-padded rows of random length (tests/test_kernels_triangle.py)."""
+    rows = []
+    for _ in range(b):
+        n = int(rng.integers(0, l + 1))
+        vals = np.sort(rng.choice(4 * l + 8, size=n, replace=False))
+        rows.append(np.concatenate([vals, -np.ones(l - n)]).astype(dtype))
+    return np.stack(rows)
+
+
+def assert_family_equal(a, b, tiles=None):
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    got = ops.intersect_count(ta, tb, tiles=tiles)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(intersect_count_pallas(ja, jb, interpret=True, tiles=tiles)))
+    for g, w in zip(ops.intersect_per_node(ta, tb, tiles=tiles),
+                    intersect_per_node_pallas(ja, jb, interpret=True, tiles=tiles)):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for g, w in zip(ops.intersect_support(ta, tb, tiles=tiles),
+                    intersect_support_pallas(ja, jb, interpret=True, tiles=tiles)):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int16])
+@pytest.mark.parametrize("b,lu,lv", SHAPES)
+def test_count_matches_pallas_interpret(b, lu, lv, dtype, rng):
+    """As tests/test_kernels_triangle.py::test_kernel_matches_ref."""
+    a, c = random_panels(rng, b, lu, dtype), random_panels(rng, b, lv, dtype)
+    got = ops.intersect_count(torch.from_numpy(a), torch.from_numpy(c))
+    want = intersect_count_pallas(jnp.asarray(a), jnp.asarray(c), interpret=True)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("b,lu,lv", SHAPES)
+def test_family_matches_pallas_interpret(b, lu, lv, rng):
+    """As tests/test_kernels_triangle.py::test_attribution_kernels_match_ref."""
+    assert_family_equal(random_panels(rng, b, lu, np.int32), random_panels(rng, b, lv, np.int32))
+
+
+def test_all_padding_rows(rng):
+    a = random_panels(rng, 6, 64, np.int32)
+    a[::2] = -1
+    b = np.full((6, 32), -1, np.int32)
+    b[1] = random_panels(rng, 1, 32, np.int32)[0]
+    assert_family_equal(a, b)
+    assert ops.intersect_count(torch.from_numpy(a), torch.from_numpy(b)).tolist() == [0] * 6
+
+
+@pytest.mark.parametrize("tiles", [(1, 128), (8, 256), (64, 512), (256, 4096)])
+def test_tile_overrides_never_change_results(tiles, rng):
+    assert_family_equal(random_panels(rng, 23, 64, np.int32),
+                        random_panels(rng, 23, 640, np.int32), tiles=tiles)
+
+
+def test_empty_batch():
+    a = torch.empty((0, 16), dtype=torch.int32)
+    cnt, arm, clo = ops.intersect_support(a, a)
+    assert cnt.shape == (0,) and arm.shape == (0, 16) and clo.shape == (0, 16)
+
+
+def test_ref_blocks_rows_without_changing_results(rng, monkeypatch):
+    a = torch.from_numpy(random_panels(rng, 37, 48, np.int32))
+    b = torch.from_numpy(random_panels(rng, 37, 80, np.int32))
+    whole = ref.intersect_support_ref(a, b)
+    monkeypatch.setattr(ref, "_CUBE_ELEMS", 48 * 80 * 3)  # 3 rows per block
+    for w, g in zip(whole, ref.intersect_support_ref(a, b)):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+def test_cuda_wrappers_reject_cpu_tensors():
+    a = torch.zeros((2, 8), dtype=torch.int32)
+    for fn in (triangle_count.intersect_count_cuda, triangle_count.intersect_per_node_cuda,
+               triangle_count.intersect_support_cuda):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(a, a)
+
+
+def test_import_without_cuda_or_nvcc():
+    """Importing the kernel package needs no nvcc, no card and builds nothing."""
+    code = (
+        "import sys, torch\n"
+        "import repro_torch.kernels.triangle_count as tc\n"
+        "from repro_torch.kernels.triangle_count import _build\n"
+        "assert _build.build_info() is None\n"
+        "assert 'triton' not in sys.modules\n"
+        "print(sorted(tc.launches))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": "",
+                              "PYTHONPATH": ":".join(sys.path)}, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "intersect_count" in out.stdout
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_on_card(rng):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs these checks on one)")
+    for b, lu, lv in SHAPES + [(16, 4096, 4096)]:
+        a = torch.from_numpy(random_panels(rng, b, lu, np.int32)).cuda()
+        c = torch.from_numpy(random_panels(rng, b, lv, np.int32)).cuda()
+        for g, w in zip(ops.intersect_support(a, c), ref.intersect_support_ref(a, c)):
+            assert torch.equal(g, w)
