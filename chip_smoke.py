@@ -7,7 +7,8 @@ Run from the root of a checkout, with no arguments::
 Phases, each of which fails loudly (non-zero exit, no final line):
 
 1. device  — a CUDA card is required; prints its nvidia-smi name and power limit;
-2. build   — builds the intersection kernels from ``csrc/`` with nvcc;
+2. build   — builds both kernel libraries (intersection, flash attention)
+             from their ``csrc/`` with nvcc, in parallel;
 3. kernels — each CUDA kernel bit-equal to its plain PyTorch version on
              random panels (int32 and int16), all-padding rows, B = 0,
              widths 4096 and 16384, and real kron-21 panel chunks;
@@ -21,7 +22,25 @@ Phases, each of which fails loudly (non-zero exit, no final line):
 7. timing  — each kernel on the two largest real chunk shapes: its time
              (CUDA events, median), its bound, the plain version's time;
 8. profile — the kron-21 pallas count under torch.profiler: device busy
-             time by kernel against the run's wall time.
+             time by kernel against the run's wall time;
+9. attention_kernel — the flash-attention kernel against its plain version
+             (``flash_attention_torch``) and the dense oracle on the card: the
+             reference test's five cases, a causal Sq > Skv case (its rows
+             with no valid key exactly 0) and the full serving shape, in f32
+             (2e-5, TF32 off) and bf16 (3e-2), at three block-size pairs;
+             bf16 also against the exact result of its inputs, per query row,
+             with a planted fault (a dropped kv tile) that must fail there;
+10. lm_serve — qwen2-1.5b at full width through ``repro_torch.launch.serve``:
+             batch 4, prompt 2048, 32 new tokens; the kernel's launches per
+             prefill equal the layer count; finite logits, no padded vocab
+             column wins; decode step 1 equals forward(prompt + token) in f32;
+             every layer's kernel call of a prefill against the exact result
+             of its inputs; the prefill through the kernel against the same
+             prefill through the plain attention, and two planted faults
+             (attention zeroed, a dropped kv tile) that must fail there;
+             torch.profiler readings of the prefill and of the decode steps;
+11. attention timing — the kernel at the serving shape against its bound,
+             its plain version and ``scaled_dot_product_attention``.
 
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -54,6 +73,46 @@ SOURCE = "src/repro_torch/kernels/triangle_count/csrc/intersect.cu"
 # float32 outside the tensor cores, the closest published rate to the
 # kernels' int32 compares (H100 SXM data sheet)
 SCALAR_OPS_PER_S = 67e12
+BF16_TENSOR_FLOP_PER_S = 989e12  # dense bf16 on the tensor cores (H100 SXM data sheet)
+
+FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:85"
+# tests/test_kernels_attention.py::CASES: (B, Hq, Hkv, Sq, Skv, D, causal)
+ATTN_CASES = [
+    (2, 4, 4, 128, 128, 64, True),
+    (1, 8, 2, 256, 256, 128, True),
+    (2, 4, 1, 64, 192, 32, False),
+    (1, 2, 2, 100, 100, 64, True),
+    (1, 4, 4, 96, 320, 64, True),
+]
+ATTN_EMPTY_ROWS = (2, 4, 2, 96, 64, 32, True)  # Sq > Skv: 32 query rows see no key
+ATTN_BLOCKS = ((64, 64), (16, 128), (128, 64))  # (block_q, block_k); the first is the default
+# (rtol, atol) against the plain version: f32 as the reference's kernel test,
+# bf16 as its bf16 test (the plain bf16 version rounds the scores to bf16)
+ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (3e-2, 3e-2)}
+# The bf16 kernel against the exact function of its inputs (the plain version
+# in f32 on the same bf16 values), as the largest relative L2 error of one
+# query row.  The kernel rounds P to bf16 for P·V and O to bf16, each at most
+# 2^-8 relative: its worst row reads 0.0034 over every case and layer, a
+# dropped 64-key tile 0.69, and the plain bf16 version (scores rounded to
+# bf16) 0.011 (PERF.md).
+BF16_ROW_REL_L2 = 1e-2
+# the planted fault: one kv tile left out of the last q tile's softmax
+FAULT_KEYS = slice(1024, 1088)
+
+LM_ARCH = "qwen2-1.5b"
+LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = 4, 2048, 32, 0
+# the serving shape the kernel sees: q (4, 12, 2048, 128), k/v (4, 2, 2048, 128)
+ATTN_FULL = (LM_BATCH, 12, 2, LM_PROMPT, LM_PROMPT, 128, True)
+# decode step 1 against forward(prompt + token)[:, -1], f32 on both sides
+# (rtol, atol as the reference's smoke-size test)
+DECODE_TOL = 3e-4
+# prefill logits through the kernel against the plain attention, bf16: the
+# plain version rounds scores to bf16 and the kernel does not, and 28 layers
+# carry the difference; bounded as a relative L2 error of the last logits,
+# between the sound reading (0.0226) and the controls: one kv tile dropped
+# from the last q tile in every layer (0.040), attention zeroed (0.81)
+PREFILL_REL_L2 = 3e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -109,16 +168,27 @@ def memory_bytes_per_s(name: str) -> float:
 
 
 def phase_build():
-    from repro_torch.kernels.triangle_count import _build
+    """Both kernel libraries, their nvcc runs started together."""
+    from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.kernels.flash_attention import _build as fa_build
+    from repro_torch.kernels.triangle_count import _build as tc_build
+
+    libs = {"intersect": tc_build.LIBRARY, "flash_attention": fa_build.LIBRARY}
     t0 = time.perf_counter()
-    _build.load_library()
-    info = _build.build_info()
-    ptxas = [ln.strip() for ln in info["log"].splitlines() if "ptxas" in ln and
-             ("Used" in ln or "spill" in ln)]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": info["seconds"], "built": info["built"],
-          "library": os.path.relpath(info["path"], HERE), "ptxas": ptxas})
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for fut in [pool.submit(lib.load) for lib in libs.values()]:
+            fut.result()
+    out = {}
+    for name, lib in libs.items():
+        info = lib.info()
+        out[name] = {
+            "nvcc_seconds": info["seconds"], "built": info["built"],
+            "library": os.path.relpath(info["path"], HERE),
+            "ptxas": [ln.strip() for ln in info["log"].splitlines()
+                      if "ptxas" in ln and ("Used" in ln or "spill" in ln or "Compiling" in ln)],
+        }
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": out})
 
 
 # ---------------------------------------------------------------------------
@@ -434,26 +504,19 @@ def phase_timing(csr, chunks, rate):
 # ---------------------------------------------------------------------------
 
 
-def phase_profile(edges):
-    """One kron-21 pallas count under torch.profiler: device busy vs wall.
-
-    Busy time is the sum of the device activities' self time (one stream,
-    so they do not overlap); the wall clock includes the profiler's own
-    host overhead, so the idle share it gives is an upper bound.
-    """
+def profiled(fn):
+    """``fn()`` under torch.profiler: wall time, device busy time and share idle,
+    and the largest device entries.  Busy time sums the device entries' self
+    time (one stream: they do not overlap); the wall clock includes the
+    profiler's host overhead, so the idle share is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import TriangleCounter
-
-    tc = TriangleCounter(method="pallas", max_wedge_chunk=BUDGETS_21[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        t = tc.count(edges)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    check(t == T21, f"kron-21 profiled count {t} != {T21}")
-
     # the device's own activities (kernels, copies), not the host ops that
     # launched them, whose device time would count the same work twice
     rows = sorted(((ev.key, ev.self_device_time_total, ev.count)
@@ -461,10 +524,403 @@ def phase_profile(edges):
                    if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0),
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e6
-    emit({"phase": "profile", "wall_s": wall, "timings": tc.last_stats.timings,
-          "device_busy_s": busy if rows else None,
-          "device_idle_share": (1.0 - busy / wall) if rows else None,
-          "top_device": [{"name": k[:80], "s": us / 1e6, "calls": n} for k, us, n in rows[:8]]})
+    return {"wall_s": wall, "device_busy_s": busy if rows else None,
+            "device_idle_share": (1.0 - busy / wall) if rows else None,
+            "top_device": [{"name": k[:80], "s": us / 1e6, "calls": n} for k, us, n in rows[:10]]}
+
+
+def phase_profile(edges):
+    """One kron-21 pallas count under torch.profiler: device busy vs wall."""
+    from repro_torch.core import TriangleCounter
+
+    tc = TriangleCounter(method="pallas", max_wedge_chunk=BUDGETS_21[0])
+    got = {}
+    rec = profiled(lambda: got.update(t=tc.count(edges)))
+    check(got["t"] == T21, f"kron-21 profiled count {got['t']} != {T21}")
+    emit({"phase": "profile", "timings": tc.last_stats.timings, **rec})
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the flash-attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def attn_inputs(rng, case, dtype):
+    b, hq, hkv, sq, skv, d, _ = case
+    mk = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(size=shape, dtype=np.float32)).to("cuda", dtype)
+    return mk(b, hq, sq, d), mk(b, hkv, skv, d), mk(b, hkv, skv, d)
+
+
+def compare(got, want, dtype):
+    """(max abs error, within tolerance) as numpy's assert_allclose reads it."""
+    rtol, atol = ATTN_TOL[dtype]
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    err = (g - w).abs()
+    return float(err.max()), bool((err <= atol + rtol * w.abs()).all())
+
+
+def row_rel_l2(got, want):
+    """Largest relative L2 error of one query row (the last axis).  A row with
+    no valid key is 0 in ``want`` and must be 0 in ``got``."""
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-6)).max())
+
+
+def bf16_readings(got, exact):
+    """The bf16 gate's reading, with the elementwise error beside it: the max
+    abs error and the atol that rtol 1e-2 would need."""
+    g, w = got.to(torch.float32), exact.to(torch.float32)
+    err = (g - w).abs()
+    return {"row_rel_l2": row_rel_l2(g, w), "max_abs": float(err.max()),
+            "atol_at_rtol_1e-2": float((err - 1e-2 * w.abs()).max())}
+
+
+def drop_kv_tile(q, k, v, out, rows: slice, keys: slice):
+    """A planted fault: ``out`` with the keys ``keys`` left out of the causal
+    softmax of the query rows ``rows``, those rows recomputed densely in f32."""
+    sq, skv, d = q.shape[2], k.shape[2], q.shape[3]
+    g = q.shape[1] // k.shape[1]
+    kx, vx = (t.to(torch.float32).repeat_interleave(g, dim=1) for t in (k, v))
+    s = q[:, :, rows].to(torch.float32) @ kx.transpose(-1, -2) * d ** -0.5
+    i = torch.arange(sq, device=q.device)[rows, None]
+    j = torch.arange(skv, device=q.device)[None, :]
+    keep = (i + skv - sq >= j) & ~((j >= keys.start) & (j < keys.stop))
+    bad = out.clone()
+    bad[:, :, rows] = (torch.softmax(s.masked_fill(~keep, float("-inf")), -1) @ vx).to(out.dtype)
+    return bad
+
+
+def phase_attention_kernel():
+    """Returns (max abs error against the plain version, cases checked)."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.attention import flash_attention_torch
+
+    # the plain versions' f32 products in full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(12)
+    max_err, n_cases, records, worst, controls = 0.0, 0, [], {}, None
+    for case in ATTN_CASES + [ATTN_EMPTY_ROWS, ATTN_FULL]:
+        causal = case[6]
+        empty = case is ATTN_EMPTY_ROWS
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attn_inputs(rng, case, dtype)
+            plain = flash_attention_torch(q, k, v, causal=causal)
+            # the dense oracle gives the mean of v on rows with no valid key
+            dense = None if empty else attention_ref(q, k, v, causal=causal)
+            exact = None
+            if dtype == torch.bfloat16:
+                exact = flash_attention_torch(*(t.to(torch.float32) for t in (q, k, v)),
+                                              causal=causal)
+            first = None
+            for bq, bk in ATTN_BLOCKS:
+                got = flash_attention_cuda(q, k, v, causal=causal, block_q=bq, block_k=bk)
+                torch.cuda.synchronize()
+                label = f"flash_attention {case} {dtype} blocks ({bq}, {bk})"
+                check(got.dtype == dtype and got.shape == q.shape, f"{label}: {got.dtype}{tuple(got.shape)}")
+                err, ok = compare(got, plain, dtype)
+                check(ok, f"{label} disagrees with flash_attention_torch (max abs err {err})")
+                rec = {"case": list(case), "dtype": str(dtype), "blocks": [bq, bk],
+                       "err_plain": err}
+                if dense is not None:
+                    err_d, ok_d = compare(got, dense, dtype)
+                    check(ok_d, f"{label} disagrees with attention_ref (max abs err {err_d})")
+                    rec["err_dense"] = err_d
+                if exact is not None:
+                    rec["exact"] = bf16_readings(got, exact)
+                    worst = {key: max(x, worst.get(key, x)) for key, x in rec["exact"].items()}
+                    check(rec["exact"]["row_rel_l2"] <= BF16_ROW_REL_L2,
+                          f"{label}: a row is {rec['exact']['row_rel_l2']} from the exact "
+                          f"result in relative L2 (limit {BF16_ROW_REL_L2})")
+                if empty:
+                    n_empty = case[3] - case[4]
+                    check(bool((got[:, :, :n_empty] == 0).all()),
+                          f"{label}: rows with no valid key are not exactly 0")
+                    check(bool((plain[:, :, :n_empty] == 0).all()), "plain: empty rows not 0")
+                if first is None:
+                    first = got
+                else:
+                    err_b, ok_b = compare(got, first, dtype)
+                    check(ok_b, f"{label}: result depends on the block sizes ({err_b})")
+                    rec["err_blocks"] = err_b
+                max_err = max(max_err, err)
+                n_cases += 1
+                records.append(rec)
+            if case is ATTN_FULL and dtype == torch.bfloat16:
+                controls = attention_controls(q, k, v, first, plain, exact)
+            del q, k, v, plain, dense, exact, first, got
+    torch.cuda.empty_cache()
+    emit({"phase": "attention_kernel", "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cases": n_cases, "max_abs_err": max_err, "bf16_vs_exact_worst": worst,
+          "bf16_row_rel_l2_limit": BF16_ROW_REL_L2, "controls": controls,
+          "worst": sorted(records, key=lambda r: -r["err_plain"])[:4]})
+    return max_err, n_cases
+
+
+def attention_controls(q, k, v, got, plain, exact):
+    """At the serving shape in bf16: the kernel's output with one kv tile
+    dropped from the last q tile must fail the bf16 gate; the plain bf16
+    version's reading stands beside it."""
+    fault = drop_kv_tile(q, k, v, got, slice(q.shape[2] - 64, q.shape[2]), FAULT_KEYS)
+    out = {"dropped_tile": bf16_readings(fault, exact),
+           "dropped_tile_passes_3e-2_vs_plain": compare(fault, plain, torch.bfloat16)[1],
+           "plain_bf16": bf16_readings(plain, exact)}
+    emit({"phase": "attention_controls", **out})
+    check(out["dropped_tile"]["row_rel_l2"] > BF16_ROW_REL_L2,
+          "control: the bf16 gate passes the kernel's output with a kv tile dropped")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: LM serving, qwen2-1.5b at full width
+# ---------------------------------------------------------------------------
+
+
+class routed_attention:
+    """Routes the model's prefill attention through ``fn(q, k, v, causal)``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+
+        self.ops, self.saved = ops, ops.attention
+        ops.attention = lambda q, k, v, causal=True: self.fn(q, k, v, causal)
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.attention = self.saved
+
+
+def routed_last_logits(params, prompts, cfg, fn):
+    """The prefill's last logits (f32) with its attention routed through ``fn``."""
+    from repro_torch.models import transformer as tfm
+
+    with routed_attention(fn):
+        last, kv = tfm.prefill(params, prompts, cfg)
+    del kv
+    return last.to(torch.float32)
+
+
+def causal_pairs(sq, skv):
+    """Valid (query, key) pairs under the bottom-right aligned causal mask."""
+    i = np.arange(sq, dtype=np.int64)
+    return int(np.clip(i + (skv - sq) + 1, 0, skv).sum())
+
+
+def lm_bounds(cfg, params, rate):
+    """Least prefill and decode-step times on this card (ms), from the shapes.
+
+    Prefill: 2 FLOP per weight per token for every matrix (lm_head
+    included) plus 4·D FLOP per valid causal pair per query head and
+    layer, at the bf16 tensor-core rate.  Decode: each bf16 weight matrix
+    read once plus the valid KV cache, at the memory rate.
+    """
+    w = params.serving_weights(cfg.dtype)
+    mats = [t for layer in w["layers"] for n, t in layer.items()
+            if t.dim() == 2] + [w["lm_head"]]
+    mat_elems = sum(t.numel() for t in mats)
+    tokens = LM_BATCH * LM_PROMPT
+    attn = 4 * cfg.head_dim * cfg.n_heads * LM_BATCH * causal_pairs(LM_PROMPT, LM_PROMPT)
+    prefill_flop = 2 * mat_elems * tokens + cfg.n_layers * attn
+    kv_bytes = 2 * cfg.n_layers * LM_BATCH * cfg.n_kv_heads * (LM_PROMPT + LM_GEN // 2) * \
+        cfg.head_dim * 2
+    decode_bytes = sum(t.numel() * t.element_size() for t in mats) + kv_bytes
+    return {"prefill_flop": prefill_flop, "prefill_bound_ms": prefill_flop / BF16_TENSOR_FLOP_PER_S * 1e3,
+            "decode_bytes_per_step": decode_bytes, "decode_bound_ms": decode_bytes / rate * 1e3}
+
+
+def phase_lm_serve(rate):
+    """Returns the flash-attention kernel's launches on the timed serve run."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import launches, reset_launches
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.attention import flash_attention_torch
+
+    cfg = get_arch(LM_ARCH).full_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, LM_SEED, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    prompts = torch.from_numpy(np.random.default_rng(2407).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT), dtype=np.int64))
+
+    # warm run: first-use costs (cuBLAS, the bf16 serving copy) stay out of the timed run
+    t0 = time.perf_counter()
+    serve(cfg, params, prompts, LM_GEN)
+    t_warm = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    toks, t = serve(cfg, params, prompts, LM_GEN)
+    n_launch = launches["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    check(n_launch == cfg.n_layers,
+          f"lm_serve: {n_launch} flash_attention launches per prefill, expected {cfg.n_layers}")
+    check(tuple(toks.shape) == (LM_BATCH, LM_GEN), f"lm_serve: tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "lm_serve: token outside the vocab")
+    steps = t["decode_steps"]
+    serve_rec = {
+        "arch": LM_ARCH, "n_params": cfg.n_params(), "batch": LM_BATCH, "prompt": LM_PROMPT,
+        "gen": LM_GEN, "init_s": t_init, "warm_serve_s": t_warm,
+        "prefill_ms": t["prefill_s"] * 1e3, "decode_ms_per_step": t["decode_s"] * 1e3 / steps,
+        "decode_tokens_per_s": steps * LM_BATCH / t["decode_s"],
+        "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / t["prefill_s"],
+        "peak_device_bytes": peak, "flash_attention_launches": n_launch,
+        **lm_bounds(cfg, params, rate),
+    }
+    emit({"phase": "lm_serve", **serve_rec, "sample": toks[0, :16].tolist()})
+
+    # logits through the kernel: finite, and no padded vocab column wins
+    logits = tfm.forward(params, prompts, cfg)
+    check(bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()), "lm_serve: non-finite logits")
+    check(bool((logits.argmax(-1) < cfg.vocab_size).all()), "lm_serve: a padded vocab column won")
+    first_token_agrees = bool((logits[:, -1].argmax(-1).cpu() == toks[:, 0].cpu()).all())
+    del logits
+
+    # every layer's kernel call of one prefill against the exact result of
+    # its real inputs, with the bf16 gate of phase 9
+    layer_rows = []
+
+    def checked(q, k, v, causal):
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        exact = flash_attention_torch(*(t.to(torch.float32) for t in (q, k, v)), causal=causal)
+        layer_rows.append(row_rel_l2(got, exact))
+        return got
+
+    last_kernel = routed_last_logits(params, prompts, cfg, checked)
+    check(len(layer_rows) == cfg.n_layers, f"lm_serve: {len(layer_rows)} attention calls")
+    # the same prefill through the plain attention, and two planted faults
+    n0 = launches["flash_attention"]
+    last_plain = routed_last_logits(params, prompts, cfg, flash_attention_torch)
+    check(launches["flash_attention"] == n0, "plain prefill launched the kernel")
+    last_zeroed = routed_last_logits(params, prompts, cfg,
+                                     lambda q, k, v, causal: torch.zeros_like(q))
+    last_dropped = routed_last_logits(
+        params, prompts, cfg, lambda q, k, v, causal: drop_kv_tile(
+            q, k, v, flash_attention_cuda(q, k, v, causal=causal),
+            slice(LM_PROMPT - 64, LM_PROMPT), FAULT_KEYS))
+    real = slice(0, cfg.vocab_size)
+    rel_l2 = lambda a: float((a[:, real] - last_plain[:, real]).norm()  # noqa: E731
+                             / last_plain[:, real].norm())
+    rel, rel_zeroed, rel_dropped = rel_l2(last_kernel), rel_l2(last_zeroed), rel_l2(last_dropped)
+    max_abs = float((last_kernel[:, real] - last_plain[:, real]).abs().max())
+    agree = float((last_kernel.argmax(-1) == last_plain.argmax(-1)).float().mean())
+    del last_zeroed, last_dropped
+    emit({"phase": "lm_attention_checks", "layer_row_rel_l2": layer_rows,
+          "row_rel_l2_limit": BF16_ROW_REL_L2, "prefill_kernel_vs_plain_rel_l2": rel,
+          "control_attention_zeroed_rel_l2": rel_zeroed,
+          "control_dropped_tile_rel_l2": rel_dropped, "prefill_rel_l2_limit": PREFILL_REL_L2})
+    check(max(layer_rows) <= BF16_ROW_REL_L2,
+          f"lm_serve: a layer's attention row is {max(layer_rows)} from the exact result")
+    check(rel <= PREFILL_REL_L2,
+          f"lm_serve: prefill through the kernel vs plain: relative L2 {rel} > {PREFILL_REL_L2}")
+    check(min(rel_zeroed, rel_dropped) > PREFILL_REL_L2,
+          f"control: a planted fault passes the prefill gate (zeroed {rel_zeroed}, "
+          f"dropped tile {rel_dropped})")
+
+    # decode step 1 against the full forward, f32 compute on the same weights
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    last32, kv32 = tfm.prefill(params, prompts, cfg32)
+    k0, v0 = tfm.init_kv_cache(cfg32, LM_BATCH, LM_PROMPT + 1, device="cuda")
+    k0[:, :, :, :LM_PROMPT] = kv32[0]
+    v0[:, :, :, :LM_PROMPT] = kv32[1]
+    del kv32
+    nxt = last32.argmax(-1).to(torch.int32)
+    dl, _ = tfm.decode_step(params, nxt, LM_PROMPT, (k0, v0), cfg32)
+    del k0, v0
+    full = tfm.forward(params, torch.cat([prompts.cuda(), nxt[:, None].long()], 1), cfg32)[:, -1]
+    err = (dl - full).abs()
+    ok = bool((err <= DECODE_TOL + DECODE_TOL * full.abs()).all())
+    dec_err = float(err.max())
+    del full, dl, last32
+    check(ok, f"lm_serve: f32 decode step vs forward: max abs err {dec_err} (tol {DECODE_TOL})")
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_checks", "prefill_kernel_vs_plain_rel_l2": rel,
+          "prefill_kernel_vs_plain_max_abs": max_abs,
+          "argmax_agreement": agree, "first_token_agrees": first_token_agrees,
+          "decode_vs_forward_f32_max_abs": dec_err,
+          "decode_tol": DECODE_TOL, "prefill_rel_l2_limit": PREFILL_REL_L2})
+    phase_lm_profile(cfg, params, prompts)
+    del params
+    torch.cuda.empty_cache()
+    return n_launch, serve_rec
+
+
+def phase_lm_profile(cfg, params, prompts):
+    """The prefill, then the decode steps of one serve, each under the profiler."""
+    from repro_torch.models import transformer as tfm
+
+    emit({"phase": "lm_profile", "window": "prefill",
+          **profiled(lambda: tfm.prefill(params, prompts, cfg))})
+    last, kv = tfm.prefill(params, prompts, cfg)
+    cache = tfm.init_kv_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device="cuda")
+    cache[0][:, :, :, :LM_PROMPT] = kv[0]
+    cache[1][:, :, :, :LM_PROMPT] = kv[1]
+    del kv
+    tok = last.argmax(-1).to(torch.int32)
+
+    def decode():
+        t = tok
+        for i in range(LM_GEN - 1):
+            logits, _ = tfm.decode_step(params, t, LM_PROMPT + i, cache, cfg)
+            t = logits.argmax(-1).to(torch.int32)
+
+    emit({"phase": "lm_profile", "window": f"decode, {LM_GEN - 1} steps", **profiled(decode)})
+
+
+# ---------------------------------------------------------------------------
+# phase 11: attention timing at the serving shape
+# ---------------------------------------------------------------------------
+
+
+def sdpa(q, k, v):
+    """The yardstick: PyTorch's fused attention (Sq = Skv here, so its
+    top-left causal mask is the kernel's bottom-right one).  The port
+    never calls it."""
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                            enable_gqa=True)
+
+
+def phase_attention_timing(rate):
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+    from repro_torch.models.attention import flash_attention_torch
+
+    b, hq, _, sq, skv, d, causal = ATTN_FULL
+    rng = np.random.default_rng(13)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = attn_inputs(rng, ATTN_FULL, dtype)
+        el = q.element_size()
+        n_bytes = el * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read; o written
+        flop = 4 * b * hq * d * causal_pairs(sq, skv)
+        peak = BF16_TENSOR_FLOP_PER_S if dtype == torch.bfloat16 else SCALAR_OPS_PER_S
+        t_bytes, t_ops = n_bytes / rate, flop / peak
+        rec = {
+            "dtype": str(dtype), "shape": [list(q.shape), list(k.shape)],
+            "ms": time_ms(lambda: flash_attention_cuda(q, k, v, causal=causal), reps=20),
+            "plain_ms": time_ms(lambda: flash_attention_torch(q, k, v, causal=causal), reps=5,
+                                warm=1),
+            "library_ms": time_ms(lambda: sdpa(q, k, v), reps=20),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flop": flop, "bytes": n_bytes,
+        }
+        rec["tflop_per_s"] = flop / rec["ms"] / 1e9
+        emit({"phase": "attention_timing", **rec})
+        out[dtype] = rec
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out[torch.bfloat16]
 
 
 # ---------------------------------------------------------------------------
@@ -508,6 +964,12 @@ def main() -> int:
     phase_kernels_real(cmp, csr, chunks)
     timing, top = phase_timing(csr, chunks, rate)
 
+    del csr, chunks
+    torch.cuda.empty_cache()
+    fa_err, fa_cases = phase_attention_kernel()
+    fa_launches, _ = phase_lm_serve(rate)
+    fa_time = phase_attention_timing(rate)
+
     kernels = []
     for k in KERNELS:
         t = timing[(k, top)]
@@ -519,6 +981,14 @@ def main() -> int:
             "checked_cases": cmp.cases[k], "shape": [t["rows"], top, top],
         })
         check(main_launches[k] > 0, f"{k} was not launched on the main path")
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
+        "launches": fa_launches, "max_abs_err": fa_err, "ms": fa_time["ms"],
+        "plain_ms": fa_time["plain_ms"], "bound_ms": fa_time["bound_ms"],
+        "bound_by": fa_time["bound_by"], "library_ms": fa_time["library_ms"],
+        "checked_cases": fa_cases, "shape": fa_time["shape"],
+    })
+    check(fa_launches > 0, "flash_attention was not launched on the serving path")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "nvidia_smi": smi_line})
     print(json.dumps({"kernels": kernels}), flush=True)

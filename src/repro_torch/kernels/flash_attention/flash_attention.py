@@ -1,0 +1,126 @@
+"""CUDA flash attention (forward, GQA): the wrapper of ``csrc/flash_attention.cu``.
+
+The Hopper counterpart of the JAX package's Pallas kernel
+``flash_attention_pallas``: one block per (batch·head, q tile), the kv
+sweep a loop inside the block, bf16 products on the tensor cores
+(``mma.sync``) and f32 products as scalar FMAs, the softmax state in f32.
+
+:func:`flash_attention_cuda` checks its inputs, allocates the output,
+launches on the current stream, raises on a nonzero ``cudaError_t`` and
+counts its launches in :data:`launches`.  It takes CUDA tensors only; the
+CPU path is :mod:`.ops`, which sends CPU tensors to the plain version
+(:func:`repro_torch.models.attention.flash_attention_torch`).
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "flash_attention_cuda",
+    "launches",
+    "reset_launches",
+    "DEFAULT_BLOCK_Q",
+    "DEFAULT_BLOCK_K",
+    "HEAD_DIMS",
+]
+
+# raised by one at each launch of the kernel
+launches = {"flash_attention": 0}
+
+DEFAULT_BLOCK_Q = 64   # query rows per block: 16 per warp, a multiple of 16 in [16, 128]
+DEFAULT_BLOCK_K = 64   # keys staged per shared-memory tile: a multiple of 64
+HEAD_DIMS = (32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_SMEM = 232448     # bytes of shared memory one block may use on Hopper
+_MAX_GRID_Y = 65535
+
+
+def reset_launches() -> None:
+    """Set the kernel's launch count to 0."""
+    for k in launches:
+        launches[k] = 0
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if not t.is_cuda:
+            raise ValueError(f"{name} lies on {t.device}; the CUDA kernel takes CUDA tensors")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be rank 4 (B, H, S, D), got shape {tuple(t.shape)}")
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"{name} has dtype {t.dtype}; expected float32 or bfloat16")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k, v differ in dtype ({q.dtype}, {k.dtype}, {v.dtype})")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v lie on different devices ({q.device}, {k.device}, {v.device})")
+    b, hq, _, d = q.shape
+    if k.shape != v.shape:
+        raise ValueError(f"k and v differ in shape ({tuple(k.shape)} vs {tuple(v.shape)})")
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} is not supported; expected one of {HEAD_DIMS}")
+    hkv = k.shape[1]
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"query heads {hq} are not a multiple of kv heads {hkv}")
+    if b * hq > _MAX_GRID_Y:
+        raise ValueError(f"B·Hq = {b * hq} exceeds the grid limit {_MAX_GRID_Y}")
+
+
+def _blocks(block_q: int, block_k: int, sq: int, skv: int) -> tuple[int, int]:
+    """Checked block sizes, cut to the sequence lengths (the results do not
+    depend on them beyond f32 rounding)."""
+    if block_q % 16 or not 16 <= block_q <= 128:
+        raise ValueError(f"block_q={block_q}: must be a multiple of 16 in [16, 128]")
+    if block_k % 64 or block_k < 64:
+        raise ValueError(f"block_k={block_k}: must be a positive multiple of 64")
+    return min(block_q, -(-sq // 16) * 16), min(block_k, max(64, -(-skv // 64) * 64))
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,  # (B, Hq, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Skv, D)
+    v: torch.Tensor,
+    causal: bool = True,
+    sm_scale: float | None = None,
+    block_q: int = DEFAULT_BLOCK_Q,
+    block_k: int = DEFAULT_BLOCK_K,
+) -> torch.Tensor:
+    """Softmax attention on the card; output (B, Hq, Sq, D) in q's dtype.
+
+    The causal mask is bottom-right aligned (query i sees key j when
+    ``i + Skv - Sq >= j``); a query row with no valid key outputs 0.
+    """
+    from ._build import load_library
+
+    _check(q, k, v)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    bq, bk = _blocks(block_q, block_k, sq, skv)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    dtype = _DTYPES[q.dtype]
+    smem = lib.fa_smem_bytes(dtype, d, bq, bk)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"block_q={bq}, block_k={bk} need {smem} bytes of shared memory "
+                         f"at D={d} {q.dtype}; at most {_MAX_SMEM} fit")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.fa_forward_launch(
+            dtype, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, hq, hkv, sq, skv, bq, bk, float(sm_scale), int(bool(causal)), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError_t {err}")
+    launches["flash_attention"] += 1
+    return out

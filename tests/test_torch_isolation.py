@@ -112,3 +112,35 @@ def test_oriented_csr_from_numpy_counts(small_graphs):
                                  device="cpu")
     assert TriangleCounter(method="wedge_bsearch", device="cpu").count(csr) == 1
     assert TriangleCounter(method="wedge_bsearch", device="cpu").count(edges) == 1
+
+
+def test_cpu_attention_path_never_builds(monkeypatch):
+    from repro_torch.kernels.flash_attention import _build, launches, ops, reset_launches
+
+    def refuse():
+        raise AssertionError("the CPU path tried to build or load the CUDA library")
+
+    monkeypatch.setattr(_build, "load_library", refuse)
+    reset_launches()
+    q = torch.zeros((1, 4, 16, 32))
+    k = torch.zeros((1, 2, 16, 32))
+    assert ops.attention(q, k, k).shape == q.shape
+    assert launches == {"flash_attention": 0}
+    assert _build.build_info() is None
+
+
+def test_lm_modules_import_without_cuda_or_nvcc():
+    """The serving modules import with no nvcc and no card, and build nothing."""
+    code = (
+        "import sys\n"
+        "import repro_torch.launch.serve, repro_torch.models, repro_torch.configs\n"
+        "from repro_torch.kernels.flash_attention import _build\n"
+        "assert _build.build_info() is None\n"
+        "assert 'triton' not in sys.modules and 'jax' not in sys.modules\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": "",
+                              "PYTHONPATH": ":".join(sys.path)}, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
