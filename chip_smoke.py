@@ -7,29 +7,42 @@ Run from the root of a checkout, with no arguments::
 Phases, each of which fails loudly (non-zero exit, no final line):
 
 1. device  — a CUDA card is required; prints its nvidia-smi name and power limit;
-2. build   — builds both kernel libraries (intersection, flash attention)
-             from their ``csrc/`` with nvcc, in parallel;
-3. kernels — each CUDA kernel bit-equal to its plain PyTorch version on
+2. build   — builds the two kernel libraries (intersection: the panel and
+             CSR count kernels; flash attention) from their ``csrc/``, one
+             nvcc per source, all started together;
+3. kernels — each panel kernel bit-equal to its plain PyTorch version on
              random panels (int32 and int16), all-padding rows, B = 0,
-             widths 4096 and 16384, and real kron-21 panel chunks;
+             widths 4096 and 16384, and real kron-21 panel chunks; the CSR
+             count kernel bit-equal to its plain version (gather + count) on
+             synthetic CSRs (du > dv and du < dv, empty lists, chunk padding,
+             lists longer than its shared-memory share) and on the first and
+             last chunk of every kron-21 width bucket;
 4. karate  — the CLI (``python -m repro_torch.launch.count``) counts 45;
 5. kron-13 — 1,180,718 triangles through wedge_bsearch, panel and pallas at
              two budgets; Σ per_node and Σ edge_support = 3T through pallas;
 6. kron-21 — the full-size graph (R-MAT scale 21, edge factor 16, seed 1503):
              count through auto (resolving to pallas), pallas at 2^26 and 2^24,
              wedge_bsearch at 2^26; per_node and edge_support through pallas.
-             Every kernel's launch count on its run equals the run's chunks;
+             The pallas counts run the CSR count kernel once per chunk and the
+             panel count kernel never; per_node and support run their panel
+             kernels once per chunk.  At 2^26 the pallas count and the gather
+             route it replaced also count the resident oriented CSR, for their
+             peak device memory above it;
 7. timing  — each kernel on the two largest real chunk shapes: its time
-             (CUDA events, median), its bound, the plain version's time;
+             (CUDA events, median), its bound, the plain version's time; for
+             the CSR count kernel also the gather + panel kernel it replaces;
 8. profile — the kron-21 pallas count under torch.profiler: device busy
              time by kernel against the run's wall time;
 9. attention_kernel — the flash-attention kernel against its plain version
              (``flash_attention_torch``) and the dense oracle on the card: the
              reference test's five cases, a causal Sq > Skv case (its rows
              with no valid key exactly 0) and the full serving shape, in f32
-             (2e-5, TF32 off) and bf16 (3e-2), at three block-size pairs;
-             bf16 also against the exact result of its inputs, per query row,
-             with a planted fault (a dropped kv tile) that must fail there;
+             (2e-5, TF32 off, three block pairs) and bf16 (3e-2, the four
+             block pairs the wgmma kernel takes); bf16 also against the exact
+             result of its inputs, per query row, with a planted fault (a
+             dropped kv tile) that must fail there; and at the scales 0.3, 0
+             and −0.2 (f32 against the plain version, bf16 against the exact
+             result);
 10. lm_serve — qwen2-1.5b at full width through ``repro_torch.launch.serve``:
              batch 4, prompt 2048, 32 new tokens; the kernel's launches per
              prefill equal the layer count; finite logits, no padded vocab
@@ -70,6 +83,10 @@ REPLACES = {
     "intersect_support": "src/repro/kernels/triangle_count/triangle_count.py:244",
 }
 SOURCE = "src/repro_torch/kernels/triangle_count/csrc/intersect.cu"
+CSR_SOURCE = "src/repro_torch/kernels/triangle_count/csrc/count_csr.cu"
+# the CSR count kernel replaces the Pallas count kernel and the panel gather before it
+CSR_REPLACES = ("src/repro/kernels/triangle_count/triangle_count.py:223 "
+                "(with gather_panels_arrays, src/repro/core/count.py:315)")
 # float32 outside the tensor cores, the closest published rate to the
 # kernels' int32 compares (H100 SXM data sheet)
 SCALAR_OPS_PER_S = 67e12
@@ -86,10 +103,17 @@ ATTN_CASES = [
     (1, 4, 4, 96, 320, 64, True),
 ]
 ATTN_EMPTY_ROWS = (2, 4, 2, 96, 64, 32, True)  # Sq > Skv: 32 query rows see no key
-ATTN_BLOCKS = ((64, 64), (16, 128), (128, 64))  # (block_q, block_k); the first is the default
+# (block_q, block_k) per dtype; the first is the default.  bf16: every pair
+# the wgmma kernel takes (64 query rows per consumer warpgroup, 64- or
+# 128-key tiles)
+ATTN_BLOCKS = {torch.float32: ((64, 64), (16, 128), (128, 64)),
+               torch.bfloat16: ((128, 128), (64, 64), (128, 64), (64, 128))}
 # (rtol, atol) against the plain version: f32 as the reference's kernel test,
 # bf16 as its bf16 test (the plain bf16 version rounds the scores to bf16)
 ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (3e-2, 3e-2)}
+# softmax scales beside the default D^-0.5: zero (uniform attention over the
+# valid keys) and negative (reversed), which the reference takes as well
+ATTN_SCALES = (0.3, 0.0, -0.2)
 # The bf16 kernel against the exact function of its inputs (the plain version
 # in f32 on the same bf16 values), as the largest relative L2 error of one
 # query row.  The kernel rounds P to bf16 for P·V and O to bf16, each at most
@@ -168,7 +192,7 @@ def memory_bytes_per_s(name: str) -> float:
 
 
 def phase_build():
-    """Both kernel libraries, their nvcc runs started together."""
+    """The two kernel libraries, built together (one nvcc per source)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.flash_attention import _build as fa_build
@@ -276,6 +300,79 @@ def phase_kernels_synthetic(cmp: Compare):
     emit({"phase": "kernels_synthetic", "cases": dict(cmp.cases), "max_abs_err": cmp.max_abs_err})
 
 
+class CsrCompare:
+    """Holds every comparison of the CSR count kernel with its plain version."""
+
+    def __init__(self):
+        self.max_abs_err = 0
+        self.cases = 0
+
+    def run(self, row_offsets, col, u, v, width: int, label: str, rows=None, panel=None):
+        """The kernel on (u, v) vs gather + plain count, bit for bit.
+
+        ``rows`` restricts the plain side to those rows (rows are
+        independent); ``panel`` is the panel kernel's count of the same
+        chunk, which the kernel must equal on every row.
+        """
+        from repro_torch.kernels.triangle_count import ref
+        from repro_torch.kernels.triangle_count.triangle_count import intersect_count_csr_cuda
+
+        got = intersect_count_csr_cuda(row_offsets, col, u, v, width)
+        torch.cuda.synchronize()
+        pu, pv = (u, v) if rows is None else (u[rows], v[rows])
+        want = ref.intersect_count_csr_ref(row_offsets, col, pu, pv, width)
+        g = got if rows is None else got[rows]
+        check(got.dtype == torch.int32 and got.shape == u.shape and g.shape == want.shape,
+              f"intersect_count_csr on {label}: {got.dtype}{tuple(got.shape)}")
+        err = int((g.to(torch.int64) - want.to(torch.int64)).abs().max()) if g.numel() else 0
+        if panel is not None:
+            err = max(err, int((got.to(torch.int64) - panel.to(torch.int64)).abs().max())
+                      if got.numel() else 0)
+        self.max_abs_err = max(self.max_abs_err, err)
+        check(err == 0, f"intersect_count_csr disagrees with its plain version on {label} "
+                        f"(max abs err {err})")
+        self.cases += 1
+
+
+def synthetic_csr(rng, n, max_deg, rows, long_rows=0):
+    """A CSR of ``n`` nodes with sorted random out-lists of 0..max_deg entries
+    (node 0 empty, node 1 at max_deg), and ``rows`` query pairs: every 7th u
+    and every 11th v is −1 (chunk padding), and pairs with du > dv, du < dv
+    and empty lists are present by construction."""
+    deg = rng.integers(0, max_deg + 1, size=n)
+    deg[0], deg[1], deg[2] = 0, max_deg, max(1, max_deg // 3)
+    deg[3:3 + long_rows] = max_deg
+    ro = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    col = np.concatenate([np.sort(rng.choice(3 * max_deg + 16, size=int(d), replace=False))
+                          for d in deg]).astype(np.int32)
+    u = rng.integers(0, n, size=rows).astype(np.int32)
+    v = rng.integers(0, n, size=rows).astype(np.int32)
+    u[:4], v[:4] = (1, 2, 0, 1), (2, 1, 1, 0)  # du > dv, du < dv, empty u, empty v
+    u[4::7] = -1
+    v[5::11] = -1
+    return [torch.from_numpy(x).to("cuda") for x in (ro, col, u, v)]
+
+
+def phase_csr_synthetic(ccmp: CsrCompare):
+    """The CSR count kernel on synthetic CSRs, one per lane-group size and
+    with lists past its 1024-entry shared-memory share (searched in global
+    memory), including lists longer than the bucket width (cut to it)."""
+    rng = np.random.default_rng(31)
+    done = []
+    for n, max_deg, rows, width in ((64, 16, 1000, 16), (200, 64, 3000, 64),
+                                    (300, 256, 2000, 256), (120, 1024, 700, 1024),
+                                    (60, 3000, 400, 4096), (60, 3000, 400, 2048),
+                                    (60, 3000, 400, 1024), (9, 40, 5, 16)):
+        ro, col, u, v = synthetic_csr(rng, n, max_deg, rows, long_rows=min(8, n - 3))
+        ccmp.run(ro, col, u, v, width, f"synthetic n={n} max_deg={max_deg} width={width}")
+        done.append({"n": n, "max_deg": max_deg, "rows": rows, "width": width})
+    empty = torch.empty((0,), dtype=torch.int32, device="cuda")
+    ro, col, _, _ = synthetic_csr(rng, 8, 8, 8)
+    ccmp.run(ro, col, empty, empty, 16, "B = 0")
+    emit({"phase": "csr_synthetic", "cases": done, "checked": ccmp.cases,
+          "max_abs_err": ccmp.max_abs_err})
+
+
 def real_chunks(csr, budget):
     """``{width: [PanelChunk, ...]}`` of the engine's panel plan at ``budget``."""
     from repro_torch.core.engine import PallasBackend, workload_from_csr
@@ -297,8 +394,10 @@ def gather(csr, chunk):
     return a.contiguous(), b.contiguous()
 
 
-def phase_kernels_real(cmp: Compare, csr, chunks):
-    """Kernels vs plain on real kron-21 chunks: first and last of each bucket."""
+def phase_kernels_real(cmp: Compare, ccmp: CsrCompare, csr, chunks):
+    """Kernels vs plain on real kron-21 chunks: first and last of each bucket.
+    The CSR count kernel is also held against the panel count kernel (itself
+    checked here) on every row of the chunk."""
     rng = np.random.default_rng(21)
     done = []
     for width in sorted(chunks):
@@ -310,10 +409,17 @@ def phase_kernels_real(cmp: Compare, csr, chunks):
             rows = None
             if n > cap:
                 rows = torch.from_numpy(np.sort(rng.choice(n, size=cap, replace=False))).to(a.device)
-            cmp.run(a, b, f"kron-21 chunk width {width} rows {n}", rows=rows)
+            label = f"kron-21 chunk width {width} rows {n}"
+            cmp.run(a, b, label, rows=rows)
+            from repro_torch.kernels.triangle_count.triangle_count import intersect_count_cuda
+
+            u, v = (torch.from_numpy(x).to(csr.device) for x in (ch.u, ch.v))
+            ccmp.run(csr.row_offsets, csr.col, u, v, width, label, rows=rows,
+                     panel=intersect_count_cuda(a, b))
             done.append({"width": width, "rows": n, "plain_rows": n if rows is None else int(rows.numel())})
     emit({"phase": "kernels_real", "chunks": done, "cases": dict(cmp.cases),
-          "max_abs_err": cmp.max_abs_err})
+          "max_abs_err": cmp.max_abs_err, "csr_cases": ccmp.cases,
+          "csr_max_abs_err": ccmp.max_abs_err})
 
 
 # ---------------------------------------------------------------------------
@@ -341,7 +447,8 @@ def phase_karate():
 
 
 def run_engine(kind, edges, method, budget, reset=True):
-    """One engine call on the card; returns (value, stats, seconds, launches)."""
+    """One engine call on the card (``edges``: an edge list or an oriented
+    CSR); returns (value, stats, seconds, launches)."""
     from repro_torch.core import TriangleCounter
     from repro_torch.kernels.triangle_count import launches, reset_launches
 
@@ -367,8 +474,9 @@ def phase_kron13():
             check(t == T13, f"kron-13 {method} budget {budget}: {t} != {T13}")
             check(st.method == method, f"kron-13: executed {st.method}, asked {method}")
             if method == "pallas":
-                check(ln["intersect_count"] == st.n_chunks,
-                      f"kron-13 pallas: {ln['intersect_count']} launches != {st.n_chunks} chunks")
+                check(ln["intersect_count_csr"] == st.n_chunks and ln["intersect_count"] == 0,
+                      f"kron-13 pallas: {ln['intersect_count_csr']} CSR count launches, "
+                      f"{ln['intersect_count']} panel count launches, {st.n_chunks} chunks")
             runs.append({"method": method, "budget": budget, "triangles": t,
                          "n_chunks": st.n_chunks, "seconds": sec})
     pn, st, _, ln = run_engine("per_node", edges, "pallas", 1 << 16)
@@ -381,27 +489,54 @@ def phase_kron13():
           "edge_support_sum": int(es.sum())})
 
 
-def phase_kron21(edges):
-    """The full-size main path; returns each kernel's launches on its run."""
+def register_gather_route():
+    """``method="pallas_gather"``: the count route before the CSR kernel (panel
+    gather with torch ops, then the panel count kernel), run beside the main
+    path for comparison only."""
+    from repro_torch.core import engine
+
+    class GatherRoute(engine.PallasBackend):
+        name = "pallas_gather"
+        count_chunk = engine.PanelBackend.count_chunk
+
+    engine.register_backend("pallas_gather",
+                            lambda widths=engine.DEFAULT_WIDTHS, **_: GatherRoute(widths))
+
+
+def phase_kron21(edges, csr):
+    """The full-size main path; returns each kernel's launches on its run.
+
+    ``csr`` is the graph's oriented CSR, resident on the card: the 2^26
+    pallas count and the gather route count it (preprocess skipped), so
+    their peaks above it are the count's own."""
     main_launches = {}
     runs = []
 
-    def one(kind, method, budget, expect, kernel=None):
+    def one(kind, method, budget, expect, kernel=None, graph=edges):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        value, st, sec, ln = run_engine(kind, edges, method, budget)
+        value, st, sec, ln = run_engine(kind, graph, method, budget)
         got = value if kind == "count" else int(value.sum())
         check(got == expect, f"kron-21 {kind} {method} {budget}: {got} != {expect}")
         rec = {"kind": kind, "method": method, "resolved_method": st.resolved_method,
                "executed": st.method, "budget": budget, "value": got,
+               "input": "edges" if graph is edges else "oriented CSR",
                "n_chunks": st.n_chunks, "peak_wedge_buffer": st.peak_wedge_buffer,
                "seconds": sec, "timings": st.timings, "launches": ln,
-               "peak_device_bytes": torch.cuda.max_memory_allocated()}
+               "peak_device_bytes": torch.cuda.max_memory_allocated(),
+               "peak_above_resident_bytes": torch.cuda.max_memory_allocated() - base,
+               "resident_bytes": base}
         if kernel is not None:
-            check(st.method == "pallas", f"kron-21 {kind} {method}: executed {st.method}")
+            check(st.method in ("pallas", "pallas_gather"),
+                  f"kron-21 {kind} {method}: executed {st.method}")
             check(ln[kernel] == st.n_chunks,
                   f"kron-21 {kind} {method} {budget}: {ln[kernel]} {kernel} launches "
                   f"!= {st.n_chunks} chunks")
             check(ln[kernel] > 0, f"kron-21 {kind}: {kernel} never launched")
+            others = {k: n for k, n in ln.items() if k != kernel and n}
+            check(not others, f"kron-21 {kind} {method} {budget}: other kernels launched {others}")
         emit({"phase": "kron21_run", **rec})
         runs.append(rec)
         return ln
@@ -411,10 +546,13 @@ def phase_kron21(edges):
     run_engine("count", edges, "pallas", BUDGETS_21[0])
     emit({"phase": "kron21_warm", "seconds": time.perf_counter() - t0})
 
-    one("count", "auto", BUDGETS_21[0], T21, "intersect_count")
-    main_launches["intersect_count"] = one(
-        "count", "pallas", BUDGETS_21[0], T21, "intersect_count")["intersect_count"]
-    one("count", "pallas", BUDGETS_21[1], T21, "intersect_count")
+    one("count", "auto", BUDGETS_21[0], T21, "intersect_count_csr")
+    ln = one("count", "pallas", BUDGETS_21[0], T21, "intersect_count_csr", graph=csr)
+    main_launches["intersect_count_csr"] = ln["intersect_count_csr"]
+    main_launches["intersect_count"] = ln["intersect_count"]  # 0: the count reads the CSR
+    one("count", "pallas", BUDGETS_21[1], T21, "intersect_count_csr")
+    register_gather_route()  # the old count route, for its execute time and peak memory
+    one("count", "pallas_gather", BUDGETS_21[0], T21, "intersect_count", graph=csr)
     one("count", "wedge_bsearch", BUDGETS_21[0], T21)
     main_launches["intersect_per_node"] = one(
         "per_node", "pallas", BUDGETS_21[0], 3 * T21, "intersect_per_node")["intersect_per_node"]
@@ -429,8 +567,11 @@ def phase_kron21(edges):
 # ---------------------------------------------------------------------------
 
 
-def time_ms(fn, reps: int, warm: int = 2) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event-timed calls."""
+def time_ms(fn, reps: int, warm: int = 2, batch: int = 1) -> float:
+    """Median milliseconds of one ``fn()`` over ``reps`` CUDA-event readings,
+    each the mean of ``batch`` back-to-back calls.  With ``batch`` > 1 the
+    host enqueues while the card runs, so a reading is the card's time; with
+    ``batch`` = 1 it also holds the host's time to launch one call."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -439,10 +580,11 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(batch):
+            fn()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / batch)
     times.sort()
     return times[len(times) // 2]
 
@@ -468,9 +610,30 @@ def bound(a, b, kind, rate):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, n_ops
 
 
+def csr_bound(csr, u, v, width, rate):
+    """Least time for the CSR count kernel's work on this chunk.
+
+    Bytes: each distinct list the chunk's valid rows name (cut to
+    ``width``) read once, however many rows share it, and per row u, v, two
+    row_offsets pairs and the count.  Compares: one binary search of the
+    longer list per entry of the shorter.
+    """
+    valid = (u >= 0) & (v >= 0)
+    deg = (csr.row_offsets[1:] - csr.row_offsets[:-1]).to(torch.int64)
+    du = torch.where(valid, deg[u.clamp(min=0).long()].clamp(max=width), 0)
+    dv = torch.where(valid, deg[v.clamp(min=0).long()].clamp(max=width), 0)
+    nodes = torch.unique(torch.cat([u[valid], v[valid]])).long()
+    n_bytes = 4 * int(deg[nodes].clamp(max=width).sum()) + u.shape[0] * (4 + 4 + 16 + 4)
+    lo, hi = torch.minimum(du, dv).to(torch.float64), torch.maximum(du, dv).to(torch.float64)
+    n_ops = int((lo * torch.ceil(torch.log2(hi + 1))).sum())
+    t_bytes, t_ops = n_bytes / rate, n_ops / SCALAR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, n_ops
+
+
 def phase_timing(csr, chunks, rate):
     from repro_torch.kernels.triangle_count import ref
     from repro_torch.kernels.triangle_count.triangle_count import (
+        intersect_count_csr_cuda,
         intersect_count_cuda,
         intersect_per_node_cuda,
         intersect_support_cuda,
@@ -488,7 +651,7 @@ def phase_timing(csr, chunks, rate):
         a, b = gather(csr, chunks[width][0])
         rows = a.shape[0]
         for k in KERNELS:
-            ms = time_ms(lambda: cuda[k](a, b), reps=15)
+            ms = time_ms(lambda: cuda[k](a, b), reps=15, batch=10)
             p_ms = time_ms(lambda: plain[k](a, b), reps=3, warm=1)
             b_ms, b_by, n_bytes, n_ops = bound(a, b, k, rate)
             rec = {"kernel": k, "width": width, "rows": rows, "ms": ms, "bound_ms": b_ms,
@@ -496,6 +659,27 @@ def phase_timing(csr, chunks, rate):
                    "plain_ms": p_ms, "library_ms": None}
             emit({"phase": "timing", **rec})
             results[(k, width)] = rec
+        # the CSR count kernel against the gather + panel kernel it replaces
+        ch = chunks[width][0]
+        u, v = (torch.from_numpy(x).to(csr.device) for x in (ch.u, ch.v))
+
+        def gather_panel():
+            pa, pb, _, _ = ref.gather_panels_arrays(csr.row_offsets, csr.col, csr.out_degree,
+                                                    u, v, width)
+            return intersect_count_cuda(pa, pb)
+
+        fused = lambda: intersect_count_csr_cuda(csr.row_offsets, csr.col, u, v, width)  # noqa: E731
+        p_ms = time_ms(lambda: ref.intersect_count_csr_ref(csr.row_offsets, csr.col, u, v, width),
+                       reps=3, warm=1)
+        b_ms, b_by, n_bytes, n_ops = csr_bound(csr, u, v, width, rate)
+        rec = {"kernel": "intersect_count_csr", "width": width, "rows": rows,
+               "ms": time_ms(fused, reps=15, batch=10),
+               "gather_panel_ms": time_ms(gather_panel, reps=15, batch=10),
+               "ms_single_launch": time_ms(fused, reps=15),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "compares": n_ops,
+               "plain_ms": p_ms, "library_ms": None}
+        emit({"phase": "timing", **rec})
+        results[("intersect_count_csr", width)] = rec
     return results, widths[-1]
 
 
@@ -601,7 +785,7 @@ def phase_attention_kernel():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(12)
-    max_err, n_cases, records, worst, controls = 0.0, 0, [], {}, None
+    max_err, n_cases, records, scaled, worst, controls = 0.0, 0, [], [], {}, None
     for case in ATTN_CASES + [ATTN_EMPTY_ROWS, ATTN_FULL]:
         causal = case[6]
         empty = case is ATTN_EMPTY_ROWS
@@ -615,7 +799,7 @@ def phase_attention_kernel():
                 exact = flash_attention_torch(*(t.to(torch.float32) for t in (q, k, v)),
                                               causal=causal)
             first = None
-            for bq, bk in ATTN_BLOCKS:
+            for bq, bk in ATTN_BLOCKS[dtype]:
                 got = flash_attention_cuda(q, k, v, causal=causal, block_q=bq, block_k=bk)
                 torch.cuda.synchronize()
                 label = f"flash_attention {case} {dtype} blocks ({bq}, {bk})"
@@ -648,6 +832,11 @@ def phase_attention_kernel():
                 max_err = max(max_err, err)
                 n_cases += 1
                 records.append(rec)
+            for scale in ATTN_SCALES if case is not ATTN_FULL else ():
+                rec = attention_at_scale(q, k, v, case, scale, worst)
+                max_err = max(max_err, rec.get("err_plain", 0.0))
+                n_cases += 1
+                scaled.append(rec)
             if case is ATTN_FULL and dtype == torch.bfloat16:
                 controls = attention_controls(q, k, v, first, plain, exact)
             del q, k, v, plain, dense, exact, first, got
@@ -655,8 +844,41 @@ def phase_attention_kernel():
     emit({"phase": "attention_kernel", "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cases": n_cases, "max_abs_err": max_err, "bf16_vs_exact_worst": worst,
           "bf16_row_rel_l2_limit": BF16_ROW_REL_L2, "controls": controls,
-          "worst": sorted(records, key=lambda r: -r["err_plain"])[:4]})
+          "worst": sorted(records, key=lambda r: -r["err_plain"])[:4], "scaled": scaled})
     return max_err, n_cases
+
+
+def attention_at_scale(q, k, v, case, scale, worst):
+    """The kernel (default blocks) at softmax scale ``scale``: in f32 against
+    the plain version at that scale (2e-5); in bf16 against the exact result
+    of its inputs per query row (the plain bf16 version rounds the scores to
+    bf16, which at a scale above the default errs past 3e-2 itself: its
+    reading stands beside the kernel's).  Rows with no valid key exactly 0.
+    Folds the bf16 readings into ``worst``."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+    from repro_torch.models.attention import flash_attention_torch
+
+    causal, dtype = case[6], q.dtype
+    label = f"flash_attention {case} {dtype} sm_scale {scale}"
+    got = flash_attention_cuda(q, k, v, causal=causal, sm_scale=scale)
+    plain = flash_attention_torch(q, k, v, causal=causal, sm_scale=scale)
+    rec = {"case": list(case), "dtype": str(dtype), "sm_scale": scale}
+    if dtype == torch.float32:
+        rec["err_plain"], ok = compare(got, plain, dtype)
+        check(ok, f"{label} disagrees with flash_attention_torch (max abs err {rec['err_plain']})")
+    else:
+        exact = flash_attention_torch(*(t.to(torch.float32) for t in (q, k, v)), causal=causal,
+                                      sm_scale=scale)
+        rec["exact"] = bf16_readings(got, exact)
+        rec["plain_bf16_vs_exact"] = bf16_readings(plain, exact)
+        worst.update({key: max(x, worst.get(key, x)) for key, x in rec["exact"].items()})
+        check(rec["exact"]["row_rel_l2"] <= BF16_ROW_REL_L2,
+              f"{label}: a row is {rec['exact']['row_rel_l2']} from the exact result "
+              f"(limit {BF16_ROW_REL_L2})")
+    if case is ATTN_EMPTY_ROWS:
+        check(bool((got[:, :, :case[3] - case[4]] == 0).all()),
+              f"{label}: rows with no valid key are not exactly 0")
+    return rec
 
 
 def attention_controls(q, k, v, got, plain, exact):
@@ -905,12 +1127,15 @@ def phase_attention_timing(rate):
         flop = 4 * b * hq * d * causal_pairs(sq, skv)
         peak = BF16_TENSOR_FLOP_PER_S if dtype == torch.bfloat16 else SCALAR_OPS_PER_S
         t_bytes, t_ops = n_bytes / rate, flop / peak
+        kernel = lambda: flash_attention_cuda(q, k, v, causal=causal)  # noqa: E731
+        # each a median of 20 readings of 10 back-to-back calls
         rec = {
             "dtype": str(dtype), "shape": [list(q.shape), list(k.shape)],
-            "ms": time_ms(lambda: flash_attention_cuda(q, k, v, causal=causal), reps=20),
+            "ms": time_ms(kernel, reps=20, warm=10, batch=10),
+            "ms_single_launch": time_ms(kernel, reps=20),
             "plain_ms": time_ms(lambda: flash_attention_torch(q, k, v, causal=causal), reps=5,
                                 warm=1),
-            "library_ms": time_ms(lambda: sdpa(q, k, v), reps=20),
+            "library_ms": time_ms(lambda: sdpa(q, k, v), reps=20, warm=10, batch=10),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "flop": flop, "bytes": n_bytes,
@@ -943,8 +1168,9 @@ def main() -> int:
     name, smi_line = phase_device()
     rate = memory_bytes_per_s(name)
     phase_build()
-    cmp = Compare()
+    cmp, ccmp = Compare(), CsrCompare()
     phase_kernels_synthetic(cmp)
+    phase_csr_synthetic(ccmp)
     phase_karate()
     phase_kron13()
 
@@ -955,13 +1181,12 @@ def main() -> int:
     edges = kronecker_rmat(21, edge_factor=16, seed=1503)
     emit({"phase": "kron21_generate", "seconds": time.perf_counter() - t0,
           "canonical_rows": int(edges.shape[0])})
-    main_launches = phase_kron21(edges)
-    phase_profile(edges)
-
     csr = prepare_oriented(edges, device="cuda")
+    main_launches = phase_kron21(edges, csr)
+    phase_profile(edges)
     del edges
     chunks = real_chunks(csr, BUDGETS_21[0])
-    phase_kernels_real(cmp, csr, chunks)
+    phase_kernels_real(cmp, ccmp, csr, chunks)
     timing, top = phase_timing(csr, chunks, rate)
 
     del csr, chunks
@@ -970,7 +1195,16 @@ def main() -> int:
     fa_launches, _ = phase_lm_serve(rate)
     fa_time = phase_attention_timing(rate)
 
-    kernels = []
+    t = timing[("intersect_count_csr", top)]
+    kernels = [{
+        "name": "intersect_count_csr", "route": "cuda", "source": CSR_SOURCE,
+        "replaces": CSR_REPLACES, "launches": main_launches["intersect_count_csr"],
+        "max_abs_err": ccmp.max_abs_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+        "gather_panel_ms": t["gather_panel_ms"], "checked_cases": ccmp.cases,
+        "shape": [t["rows"], top], "on_main_path": True,
+    }]
+    check(main_launches["intersect_count_csr"] > 0, "intersect_count_csr was not launched")
     for k in KERNELS:
         t = timing[(k, top)]
         kernels.append({
@@ -979,14 +1213,19 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "checked_cases": cmp.cases[k], "shape": [t["rows"], top, top],
+            # the panel count is ops.intersect_count's route; the engine's
+            # count reads the CSR, so its main-path launches are 0
+            "on_main_path": k != "intersect_count",
         })
-        check(main_launches[k] > 0, f"{k} was not launched on the main path")
+        if k != "intersect_count":
+            check(main_launches[k] > 0, f"{k} was not launched on the main path")
+    check(main_launches["intersect_count"] == 0, "the panel count ran on the main path")
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
         "launches": fa_launches, "max_abs_err": fa_err, "ms": fa_time["ms"],
         "plain_ms": fa_time["plain_ms"], "bound_ms": fa_time["bound_ms"],
         "bound_by": fa_time["bound_by"], "library_ms": fa_time["library_ms"],
-        "checked_cases": fa_cases, "shape": fa_time["shape"],
+        "checked_cases": fa_cases, "shape": fa_time["shape"], "on_main_path": True,
     })
     check(fa_launches > 0, "flash_attention was not launched on the serving path")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -13,7 +13,9 @@ __all__ = ["resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
-    """``torch.device`` for ``device``; ``None`` means ``cuda``.
+    """``torch.device`` for ``device``; ``None`` means ``cuda``.  A bare
+    ``cuda`` becomes the current card (``cuda:0`` …), the device its
+    tensors report, so a counter compares equal with the data it made.
 
     Raises ``RuntimeError`` when CUDA is requested (explicitly or by
     default) and ``torch.cuda.is_available()`` is false.
@@ -27,4 +29,6 @@ def resolve_device(device=None) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; expected 'cuda' or 'cpu'")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

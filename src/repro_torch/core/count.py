@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.distributed.compression import ensure_fits_int32
 from repro_torch.kernels.triangle_count.ref import (
+    gather_panels_arrays,
     intersect_count_ref,
     intersect_per_node_ref,
     intersect_support_ref,
@@ -199,31 +200,6 @@ def bucketize_edges(
             "widen `widths` (forward orientation bounds it by sqrt(2m))"
         )
     return buckets
-
-
-def gather_panels_arrays(row_offsets, col, out_degree, u, v, width: int):
-    """Gather fixed-width neighbor panels for arbitrary ``(u, v)`` pairs.
-
-    Returns ``(a, b, a_len, b_len)``: ``a: (B, width)`` the out-neighbors
-    of each ``u`` (−1 padded), ``b`` likewise for ``v``.  ``u``/``v`` slots
-    holding −1 (chunk padding) yield all-(−1) rows with zero lengths.
-    """
-    valid = (u >= 0) & (v >= 0)
-    safe_u = u.clamp(min=0)
-    safe_v = v.clamp(min=0)
-    lane = torch.arange(width, dtype=torch.int32, device=col.device)
-    last = max(col.shape[0] - 1, 0)
-
-    def panel(base, length):
-        idx = (base[:, None] + lane[None, :]).clamp_(0, last)
-        vals = col[idx] if col.shape[0] else torch.full_like(idx, -1)
-        return torch.where(lane[None, :] < length[:, None], vals, -1)
-
-    a_len = torch.where(valid, out_degree[safe_u], 0)
-    b_len = torch.where(valid, out_degree[safe_v], 0)
-    a = panel(row_offsets[safe_u], a_len)
-    b = panel(row_offsets[safe_v], b_len)
-    return a, b, a_len, b_len
 
 
 def gather_panels(csr: OrientedCSR, edge_idx: torch.Tensor, width: int):

@@ -606,9 +606,17 @@ class PallasBackend(PanelBackend):
     backend.  Identical planning and scatters to :class:`PanelBackend`;
     the intersections run in :mod:`repro_torch.kernels.triangle_count`
     (the CUDA kernels on the card, their plain versions on CPU tensors).
+    The count reads the CSR directly (``intersect_count_csr``) and gathers
+    no panels; per-node and support still gather them.
     """
 
     name = "pallas"
+
+    def count_chunk(self, adj, chunk):
+        # the gather is fused into the kernel: it reads both lists from the CSR
+        return tc_ops.intersect_count_csr(
+            adj.row_offsets, adj.col, adj.put(chunk.u), adj.put(chunk.v), chunk.width
+        )
 
     def intersect_count(self, a, b):
         return tc_ops.intersect_count(a, b)

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernel libraries, at first use.
 
-``nvcc`` compiles a family's ``csrc/*.cu`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with :mod:`ctypes`.  Each family
-(:class:`KernelLibrary`) has one library in ``build/kernels/`` at the
-root of the checkout, named by a hash of its sources and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+``nvcc`` compiles a family's ``csrc/*.cu`` for ``sm_90a``, one process per
+source, all started together, and links the objects into a shared library
+with a plain C interface, loaded with :mod:`ctypes`.  Each
+:class:`KernelLibrary` has one library in ``build/kernels/`` at the root of
+the checkout, named by a hash of the flags and of every file in its
+sources' ``csrc/`` directories (the headers they include too), so an
+edited source or header is rebuilt and an unchanged one is loaded as it is.
 Nothing here runs at import time: the port imports, and its CPU paths
 run, on a machine with no ``nvcc`` and no card.
 """
@@ -23,9 +25,10 @@ from typing import Callable, Sequence
 
 __all__ = ["BuildError", "KernelLibrary", "build_dir", "FLAGS"]
 
+# compile flags of each source; the link adds -shared
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -51,6 +54,13 @@ def _nvcc() -> str:
     )
 
 
+def _finish(cmd: list[str], stdout: str, stderr: str, returncode: int) -> str:
+    """The step's log; raises :class:`BuildError` when it failed."""
+    if returncode != 0:
+        raise BuildError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n{stderr}")
+    return stdout + stderr
+
+
 class KernelLibrary:
     """One kernel family's shared library: built once, loaded once.
 
@@ -68,32 +78,40 @@ class KernelLibrary:
         self._lib: ctypes.CDLL | None = None
         self._info: dict | None = None
 
+    def inputs(self) -> list[Path]:
+        """Every file the build reads: all files under the sources' directories."""
+        dirs = sorted({src.parent for src in self.sources})
+        return sorted(p for d in dirs for p in d.rglob("*") if p.is_file())
+
     def digest(self) -> str:
         h = hashlib.sha256(" ".join(self.flags).encode())
-        for src in self.sources:
-            h.update(src.read_bytes())
+        for path in self.inputs():
+            h.update(path.name.encode() + b"\0" + path.read_bytes())
         return h.hexdigest()[:16]
 
     def _build(self, out: Path) -> dict:
+        """One ``nvcc -c`` per source, all started together, then the link."""
         nvcc = _nvcc()
         out.parent.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-        os.close(fd)
-        cmd = [nvcc, *self.flags, "-o", tmp, *map(str, self.sources)]
         t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-        except OSError as e:
-            os.unlink(tmp)
-            raise BuildError(f"could not run {nvcc}: {e}") from e
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise BuildError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-        return {"built": True, "seconds": seconds, "log": proc.stderr}
+        with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+            objs = [os.path.join(tmp, f"{i}_{src.stem}.o") for i, src in enumerate(self.sources)]
+            steps = [[nvcc, *self.flags, "-c", "-o", obj, str(src)]
+                     for src, obj in zip(self.sources, objs)]
+            try:
+                procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True) for cmd in steps]
+            except OSError as e:
+                raise BuildError(f"could not run {nvcc}: {e}") from e
+            done = [(cmd, *proc.communicate()) for cmd, proc in zip(steps, procs)]
+            logs = [_finish(cmd, out_, err_, proc.returncode)
+                    for (cmd, out_, err_), proc in zip(done, procs)]
+            lib = os.path.join(tmp, out.name)
+            link = [nvcc, "-shared", "-o", lib, *objs]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            logs.append(_finish(link, proc.stdout, proc.stderr, proc.returncode))
+            os.replace(lib, out)  # atomic: a concurrent loader sees all or nothing
+        return {"built": True, "seconds": time.perf_counter() - t0, "log": "".join(logs)}
 
     def load(self) -> ctypes.CDLL:
         """The loaded library, building it first when it is missing."""

@@ -2,8 +2,9 @@
 
 The Hopper counterpart of the JAX package's Pallas kernel
 ``flash_attention_pallas``: one block per (batch·head, q tile), the kv
-sweep a loop inside the block, bf16 products on the tensor cores
-(``mma.sync``) and f32 products as scalar FMAs, the softmax state in f32.
+sweep a loop inside the block, the softmax state in f32.  bf16 runs a
+warp-specialised kernel (a TMA producer warp feeding a ring of K/V
+tiles to one or two ``wgmma`` consumer warpgroups); f32 runs scalar FMAs.
 
 :func:`flash_attention_cuda` checks its inputs, allocates the output,
 launches on the current stream, raises on a nonzero ``cudaError_t`` and
@@ -19,16 +20,20 @@ __all__ = [
     "flash_attention_cuda",
     "launches",
     "reset_launches",
-    "DEFAULT_BLOCK_Q",
-    "DEFAULT_BLOCK_K",
+    "DEFAULT_BLOCKS",
     "HEAD_DIMS",
 ]
 
 # raised by one at each launch of the kernel
 launches = {"flash_attention": 0}
 
-DEFAULT_BLOCK_Q = 64   # query rows per block: 16 per warp, a multiple of 16 in [16, 128]
-DEFAULT_BLOCK_K = 64   # keys staged per shared-memory tile: a multiple of 64
+# (block_q, block_k) when the caller gives none.  bf16: block_q is 64 query
+# rows per consumer warpgroup (64 or 128), block_k the keys of one K/V tile
+# (64 or 128).  f32: block_q a multiple of 16 in [16, 128], block_k a
+# positive multiple of 64.
+DEFAULT_BLOCKS = {torch.bfloat16: (128, 128), torch.float32: (64, 64)}
+BF16_BLOCK_Q = (64, 128)
+BF16_BLOCK_K = (64, 128)
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232448     # bytes of shared memory one block may use on Hopper
@@ -73,9 +78,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"B·Hq = {b * hq} exceeds the grid limit {_MAX_GRID_Y}")
 
 
-def _blocks(block_q: int, block_k: int, sq: int, skv: int) -> tuple[int, int]:
-    """Checked block sizes, cut to the sequence lengths (the results do not
-    depend on them beyond f32 rounding)."""
+def _blocks(block_q: int | None, block_k: int | None, sq: int, skv: int,
+            dtype: torch.dtype = torch.float32) -> tuple[int, int]:
+    """Checked block sizes for ``dtype`` (``None`` takes its default), cut to
+    the sequence lengths (the results do not depend on them beyond f32
+    rounding)."""
+    dq, dk = DEFAULT_BLOCKS[dtype]
+    block_q = dq if block_q is None else block_q
+    block_k = dk if block_k is None else block_k
+    if dtype == torch.bfloat16:
+        if block_q not in BF16_BLOCK_Q:
+            raise ValueError(f"block_q={block_q}: the bf16 kernel takes {BF16_BLOCK_Q}")
+        if block_k not in BF16_BLOCK_K:
+            raise ValueError(f"block_k={block_k}: the bf16 kernel takes {BF16_BLOCK_K}")
+        return (64 if sq <= 64 else block_q), (64 if skv <= 64 else block_k)
     if block_q % 16 or not 16 <= block_q <= 128:
         raise ValueError(f"block_q={block_q}: must be a multiple of 16 in [16, 128]")
     if block_k % 64 or block_k < 64:
@@ -89,13 +105,14 @@ def flash_attention_cuda(
     v: torch.Tensor,
     causal: bool = True,
     sm_scale: float | None = None,
-    block_q: int = DEFAULT_BLOCK_Q,
-    block_k: int = DEFAULT_BLOCK_K,
+    block_q: int | None = None,
+    block_k: int | None = None,
 ) -> torch.Tensor:
     """Softmax attention on the card; output (B, Hq, Sq, D) in q's dtype.
 
     The causal mask is bottom-right aligned (query i sees key j when
     ``i + Skv - Sq >= j``); a query row with no valid key outputs 0.
+    ``block_q``/``block_k`` default to :data:`DEFAULT_BLOCKS` of q's dtype.
     """
     from ._build import load_library
 
@@ -104,7 +121,7 @@ def flash_attention_cuda(
     hkv, skv = k.shape[1], k.shape[2]
     if sm_scale is None:
         sm_scale = d ** -0.5
-    bq, bk = _blocks(block_q, block_k, sq, skv)
+    bq, bk = _blocks(block_q, block_k, sq, skv, q.dtype)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -5,6 +5,7 @@ library is built and loaded inside the first launch.
 """
 from . import ops, ref
 from .triangle_count import (
+    intersect_count_csr_cuda,
     intersect_count_cuda,
     intersect_per_node_cuda,
     intersect_support_cuda,
@@ -16,6 +17,7 @@ __all__ = [
     "ops",
     "ref",
     "intersect_count_cuda",
+    "intersect_count_csr_cuda",
     "intersect_per_node_cuda",
     "intersect_support_cuda",
     "launches",

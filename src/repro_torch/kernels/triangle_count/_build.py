@@ -1,6 +1,8 @@
-"""The intersection kernels' shared library (``csrc/intersect.cu``).
+"""The intersection kernels' shared library (``csrc/``).
 
-Built at first use by the port's shared builder
+The panel kernel family (``csrc/intersect.cu``) and the count kernel that
+reads the CSR (``csrc/count_csr.cu``), one ``nvcc`` each, linked into one
+library.  Built at first use by the port's shared builder
 (:class:`repro_torch.kernels._build.KernelLibrary`); nothing builds at
 import time.
 """
@@ -13,6 +15,8 @@ from .._build import BuildError, KernelLibrary, build_dir
 
 __all__ = ["BuildError", "load_library", "build_info", "build_dir", "LIBRARY"]
 
+_CSRC = Path(__file__).resolve().parent / "csrc"
+
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.tc_intersect_launch
@@ -23,12 +27,17 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    fn = lib.tc_count_csr_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
     return lib
 
 
-LIBRARY = KernelLibrary(
-    "tc_intersect", [Path(__file__).resolve().parent / "csrc" / "intersect.cu"], _declare
-)
+LIBRARY = KernelLibrary("tc_intersect", [_CSRC / "intersect.cu", _CSRC / "count_csr.cu"],
+                        _declare)
 
 
 def load_library() -> ctypes.CDLL:

@@ -12,12 +12,13 @@ import torch
 
 from . import ref
 from .triangle_count import (
+    intersect_count_csr_cuda,
     intersect_count_cuda,
     intersect_per_node_cuda,
     intersect_support_cuda,
 )
 
-__all__ = ["intersect_count", "intersect_per_node", "intersect_support"]
+__all__ = ["intersect_count", "intersect_count_csr", "intersect_per_node", "intersect_support"]
 
 
 def _on_cpu(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -51,3 +52,15 @@ def intersect_support(a, b, tiles=None):
     if _on_cpu(a, b):
         return ref.intersect_support_ref(a, b)
     return intersect_support_cuda(a, b, tiles=tiles)
+
+
+def intersect_count_csr(row_offsets, col, u, v, width: int) -> torch.Tensor:
+    """Per-row sizes of N⁺(u) ∩ N⁺(v) read from the CSR, each list cut to
+    ``width`` entries (the panel gather and the count in one kernel)."""
+    tensors = (row_offsets, col, u, v)
+    if all(t.device.type == "cpu" for t in tensors):
+        return ref.intersect_count_csr_ref(row_offsets, col, u, v, width)
+    if all(t.is_cuda for t in tensors):
+        return intersect_count_csr_cuda(row_offsets, col, u, v, width)
+    raise ValueError("intersect_count_csr takes all CUDA or all CPU tensors, got "
+                     + ", ".join(str(t.device) for t in tensors))

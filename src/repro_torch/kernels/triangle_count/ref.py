@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the panel intersection kernel family.
+"""Plain PyTorch versions of the intersection kernel family.
 
 The masked equality reduction of the reference's ``ref.py``, on tensors:
 ``eq[i, j, k] = (a[i, j] == b[i, k]) & (a[i, j] >= 0) & (b[i, k] >= 0)``,
@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["intersect_count_ref", "intersect_per_node_ref", "intersect_support_ref"]
+__all__ = ["intersect_count_ref", "intersect_per_node_ref", "intersect_support_ref",
+           "gather_panels_arrays", "intersect_count_csr_ref"]
 
 _CUBE_ELEMS = 1 << 26
 
@@ -53,3 +54,35 @@ def intersect_support_ref(a: torch.Tensor, b: torch.Tensor):
         arm[sl] = eq.sum(dim=2, dtype=torch.int32)
         closure[sl] = eq.sum(dim=1, dtype=torch.int32)
     return arm.sum(dim=1, dtype=torch.int32), arm, closure
+
+
+def gather_panels_arrays(row_offsets, col, out_degree, u, v, width: int):
+    """Gather fixed-width neighbor panels for arbitrary ``(u, v)`` pairs.
+
+    Returns ``(a, b, a_len, b_len)``: ``a: (B, width)`` the out-neighbors
+    of each ``u`` (−1 padded), ``b`` likewise for ``v``.  ``u``/``v`` slots
+    holding −1 (chunk padding) yield all-(−1) rows with zero lengths.
+    """
+    valid = (u >= 0) & (v >= 0)
+    safe_u = u.clamp(min=0)
+    safe_v = v.clamp(min=0)
+    lane = torch.arange(width, dtype=torch.int32, device=col.device)
+    last = max(col.shape[0] - 1, 0)
+
+    def panel(base, length):
+        idx = (base[:, None] + lane[None, :]).clamp_(0, last)
+        vals = col[idx] if col.shape[0] else torch.full_like(idx, -1)
+        return torch.where(lane[None, :] < length[:, None], vals, -1)
+
+    a_len = torch.where(valid, out_degree[safe_u], 0)
+    b_len = torch.where(valid, out_degree[safe_v], 0)
+    a = panel(row_offsets[safe_u], a_len)
+    b = panel(row_offsets[safe_v], b_len)
+    return a, b, a_len, b_len
+
+
+def intersect_count_csr_ref(row_offsets, col, u, v, width: int) -> torch.Tensor:
+    """The CSR count kernel's function: the panel gather, then the count."""
+    out_degree = row_offsets[1:] - row_offsets[:-1]
+    a, b, _, _ = gather_panels_arrays(row_offsets, col, out_degree, u, v, width)
+    return intersect_count_ref(a, b)

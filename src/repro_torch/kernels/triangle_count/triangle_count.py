@@ -14,6 +14,11 @@ element type and on which outputs it writes, serves all three members:
     adds the closure attribution, one slot per v-neighbor (replaces
     ``intersect_support_pallas``).
 
+``intersect_count_csr_cuda`` (``csrc/count_csr.cu``) is the count with the
+panel gather fused in: it takes the chunk's ``u, v`` and the CSR and reads
+each row's two lists straight from it, so the engine's count path
+materialises no panels.
+
 The TPU kernel reduces an ``Lu × Lv`` equality cube per row to keep its
 vector unit full.  The rows are sorted, so here each lane binary-searches
 its ``a`` entries in ``b``'s valid prefix: ``Lu·log₂Lv`` compares per row,
@@ -32,13 +37,15 @@ __all__ = [
     "intersect_count_cuda",
     "intersect_per_node_cuda",
     "intersect_support_cuda",
+    "intersect_count_csr_cuda",
     "launches",
     "reset_launches",
     "DEFAULT_WARPS_PER_BLOCK",
 ]
 
 # one count per kernel, raised by one at each launch (never for B == 0)
-launches = {"intersect_count": 0, "intersect_per_node": 0, "intersect_support": 0}
+launches = {"intersect_count": 0, "intersect_per_node": 0, "intersect_support": 0,
+            "intersect_count_csr": 0}
 
 DEFAULT_WARPS_PER_BLOCK = 8
 _MODES = {"intersect_count": 0, "intersect_per_node": 1, "intersect_support": 2}
@@ -126,3 +133,47 @@ def intersect_support_cuda(a: torch.Tensor, b: torch.Tensor, tiles=None):
     closure = torch.empty(b.shape, dtype=torch.int32, device=a.device)
     _launch("intersect_support", a, b, count, arm, closure, tiles)
     return count, arm, closure
+
+
+def _check_csr(row_offsets, col, u, v, width) -> None:
+    for name, t in (("row_offsets", row_offsets), ("col", col), ("u", u), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if not t.is_cuda:
+            raise ValueError(f"{name} lies on {t.device}; the CUDA kernels take CUDA tensors")
+        if t.dim() != 1:
+            raise ValueError(f"{name} must be rank 1, got shape {tuple(t.shape)}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} has dtype {t.dtype}; expected int32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != u.device:
+            raise ValueError(f"{name} lies on {t.device}, u on {u.device}")
+    if u.shape != v.shape:
+        raise ValueError(f"u and v differ in shape ({tuple(u.shape)} vs {tuple(v.shape)})")
+    if row_offsets.shape[0] < 1:
+        raise ValueError("row_offsets must hold n + 1 >= 1 entries")
+    if int(width) < 1:
+        raise ValueError(f"width={width}: must be >= 1")
+
+
+def intersect_count_csr_cuda(row_offsets: torch.Tensor, col: torch.Tensor, u: torch.Tensor,
+                             v: torch.Tensor, width: int) -> torch.Tensor:
+    """(B,) int32 sizes of N⁺(u[i]) ∩ N⁺(v[i]), each list cut to ``width``
+    entries; 0 where u or v is −1.  The lists are read from the CSR."""
+    _check_csr(row_offsets, col, u, v, width)
+    count = torch.empty(u.shape, dtype=torch.int32, device=u.device)
+    n = u.shape[0]
+    if n == 0:
+        return count
+    from ._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = lib.tc_count_csr_launch(row_offsets.data_ptr(), col.data_ptr(), u.data_ptr(),
+                                      v.data_ptr(), n, int(width), count.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"intersect_count_csr kernel launch failed: cudaError_t {err}")
+    launches["intersect_count_csr"] += 1
+    return count

@@ -80,6 +80,22 @@ def test_plain_matches_pallas_and_ref(b, hq, hkv, sq, skv, d, causal, rng):
     np.testing.assert_allclose(f32(ref.attention_ref(q, k, v, causal=causal)), dense, **F32)
 
 
+@pytest.mark.parametrize("sm_scale", [0.3, 0.0, -0.2])
+def test_plain_matches_pallas_at_any_scale(sm_scale, rng):
+    """A zero or negative scale (uniform or reversed attention) as well: the
+    reference takes any scale, and the card's kernels are held to this."""
+    b, hq, hkv, sq, skv, d, causal = CASES[3]
+    arrs = qkv_np(rng, b, hq, hkv, sq, skv, d)
+    q, k, v = as_torch(arrs)
+    jq, jk, jv = as_jax(arrs)
+    pallas = f32(flash_attention_pallas(jq, jk, jv, causal=causal, sm_scale=sm_scale,
+                                        interpret=True))
+    dense = f32(jax_attention_ref(jq, jk, jv, causal=causal, sm_scale=sm_scale))
+    got = f32(flash_attention_torch(q, k, v, causal=causal, sm_scale=sm_scale, block_k=64))
+    np.testing.assert_allclose(got, pallas, **F32)
+    np.testing.assert_allclose(got, dense, **F32)
+
+
 def test_causal_more_queries_than_keys_gives_zero_rows(rng):
     """Sq > Skv under the causal mask: the first Sq − Skv query rows see no
     key.  The blockwise versions output exactly 0 there (the 1e-30 floor);
@@ -167,6 +183,30 @@ def test_block_sizes_outside_the_kernel_raise(block_q, block_k):
         fa._blocks(block_q, block_k, 256, 256)
 
 
+@pytest.mark.parametrize("block_q,block_k,sq,skv,want", [
+    (None, None, 2048, 2048, (128, 128)),   # the bf16 default
+    (64, 128, 2048, 2048, (64, 128)),
+    (128, 64, 300, 77, (128, 64)),
+    (128, 128, 64, 40, (64, 64)),           # one 64-row warpgroup and tile suffice
+])
+def test_bf16_block_sizes_are_cut_to_the_sequence(block_q, block_k, sq, skv, want):
+    assert fa._blocks(block_q, block_k, sq, skv, torch.bfloat16) == want
+
+
+@pytest.mark.parametrize("block_q,block_k", [(16, 64), (96, 128), (256, 128), (64, 32),
+                                             (128, 192), (64, 256)])
+def test_bf16_block_sizes_outside_the_kernel_raise(block_q, block_k):
+    """The wgmma kernel takes 64 query rows per consumer warpgroup (one or
+    two) and 64- or 128-key tiles; anything else is refused."""
+    with pytest.raises(ValueError, match="block_"):
+        fa._blocks(block_q, block_k, 256, 256, torch.bfloat16)
+
+
+def test_f32_default_blocks_are_unchanged():
+    assert fa._blocks(None, None, 2048, 2048, torch.float32) == (64, 64)
+    assert fa.DEFAULT_BLOCKS[torch.bfloat16] == (128, 128)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_on_card(rng):
     if not torch.cuda.is_available():
@@ -179,6 +219,22 @@ def test_cuda_kernel_matches_plain_on_card(rng):
             want = flash_attention_torch(q, k, v, causal=causal)
             np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()), **tol)
             if dtype == torch.bfloat16:
+                for bq, bk in ((64, 64), (128, 64), (64, 128)):  # the other wgmma tiles
+                    other = fa.flash_attention_cuda(q, k, v, causal=causal, block_q=bq,
+                                                    block_k=bk)
+                    np.testing.assert_allclose(f32(other.cpu()), f32(want.cpu()), **tol)
                 exact = flash_attention_torch(q.float(), k.float(), v.float(), causal=causal)
                 rows = (got.float() - exact).norm(dim=-1) / exact.norm(dim=-1).clamp_min(1e-6)
+                assert float(rows.max()) <= BF16_ROW_REL_L2
+            for scale in (0.3, 0.0, -0.2):  # any scale, as the reference takes
+                got_s = fa.flash_attention_cuda(q, k, v, causal=causal, sm_scale=scale)
+                if dtype == torch.float32:
+                    want_s = flash_attention_torch(q, k, v, causal=causal, sm_scale=scale)
+                    np.testing.assert_allclose(f32(got_s.cpu()), f32(want_s.cpu()), **tol)
+                    continue
+                # bf16 against the exact result: the plain bf16 version rounds
+                # the scores to bf16, which at scale 0.3 errs past 3e-2 itself
+                exact = flash_attention_torch(q.float(), k.float(), v.float(), causal=causal,
+                                              sm_scale=scale)
+                rows = (got_s.float() - exact).norm(dim=-1) / exact.norm(dim=-1).clamp_min(1e-6)
                 assert float(rows.max()) <= BF16_ROW_REL_L2

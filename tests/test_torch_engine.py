@@ -110,6 +110,31 @@ def test_kron13(kron13, method, budget):
     assert port.last_stats.method == method
 
 
+@pytest.mark.parametrize("budget", [None, 48])
+@pytest.mark.parametrize("name", ["kron", "karate"])
+def test_pallas_count_reads_the_csr_without_gathering(graphs, reference_results, monkeypatch,
+                                                      name, budget):
+    """The kernel backend's count goes through ``ops.intersect_count_csr``
+    once per chunk and never through the panel gather; the count equals
+    the reference's."""
+    from repro_torch.kernels.triangle_count import ops as tc_ops
+
+    def no_gather(*_):
+        raise AssertionError("the pallas count gathered panels")
+
+    calls = []
+    real = tc_ops.intersect_count_csr
+    monkeypatch.setattr(port_engine.PanelBackend, "_gather", no_gather)
+    monkeypatch.setattr(tc_ops, "intersect_count_csr",
+                        lambda *a: calls.append(a[4]) or real(*a))
+    port = TriangleCounter(method="pallas", max_wedge_chunk=budget, device="cpu")
+    assert port.count(graphs[name]) == reference_results(name)[0]
+    assert len(calls) == port.last_stats.n_chunks > 0
+    ref = RefCounter(method="pallas", max_wedge_chunk=budget)
+    ref.count(graphs[name])
+    assert_stats_equal(ref.last_stats, port.last_stats)
+
+
 def test_plan_edge_chunks_invariants():
     rng = np.random.default_rng(0)
     reps = rng.integers(0, 50, size=500)
@@ -199,3 +224,15 @@ def test_capability_fallback_is_loud_and_not_sticky(graphs, monkeypatch):
     assert tc.count(edges) == int(want.sum()) // 3
     assert tc.last_stats.fallback_reason is None
     assert tc.last_stats.method == "count_only"
+
+
+@pytest.mark.cuda
+def test_oriented_csr_on_the_card_is_reused(graphs):
+    """A CSR built with the default device lies on ``cuda:0``; a counter
+    made with the default device takes it as it is."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py counts a CSR on one)")
+    from repro_torch.core import prepare_oriented
+
+    csr = prepare_oriented(graphs["kron"])
+    assert TriangleCounter(method="pallas").count(csr) == RefCounter().count(graphs["kron"])

@@ -3,9 +3,12 @@
 ``repro_torch.kernels.triangle_count.ops`` sends CPU tensors to the plain
 PyTorch versions; they must equal the reference's Pallas kernels run in
 interpret mode, bit for bit, on the reference test's shapes and dtypes,
-all-padding rows and ``tiles=`` overrides.  The CUDA kernels themselves
-run only on a card (``chip_smoke.py``, and the ``cuda``-marked test here).
+all-padding rows and ``tiles=`` overrides.  ``ops.intersect_count_csr``
+(the count read from the CSR) must equal the reference's panel gather
+followed by its Pallas count kernel.  The CUDA kernels themselves run only
+on a card (``chip_smoke.py``, and the ``cuda``-marked tests here).
 """
+import os
 import subprocess
 import sys
 
@@ -16,12 +19,17 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core.count import gather_panels_arrays as ref_gather_panels_arrays  # noqa: E402
+from repro.graphs.io import ingest  # noqa: E402
 from repro.kernels.triangle_count import (  # noqa: E402
     intersect_count_pallas,
     intersect_per_node_pallas,
     intersect_support_pallas,
 )
+from repro_torch.core import prepare_oriented  # noqa: E402
 from repro_torch.kernels.triangle_count import ops, ref, triangle_count  # noqa: E402
+
+KARATE = os.path.join(os.path.dirname(__file__), "data", "karate.txt")
 
 SHAPES = [(1, 8, 8), (5, 16, 64), (32, 128, 128), (9, 256, 1024), (2, 2048, 128),
           (64, 64, 32)]
@@ -109,6 +117,53 @@ def test_cuda_wrappers_reject_cpu_tensors():
             fn(a, a)
 
 
+def csr_queries(edges, rng):
+    """The CSR of ``edges`` (CPU tensors) and query pairs: every directed
+    edge, random node pairs (either side longer), chunk padding (−1, −1)
+    and half-padded rows."""
+    csr = prepare_oriented(edges, device="cpu")
+    n = csr.row_offsets.shape[0] - 1
+    pairs = rng.integers(0, n, size=(40, 2))
+    u = np.concatenate([csr.src.numpy(), pairs[:, 0], [-1] * 5, [0, -1]]).astype(np.int32)
+    v = np.concatenate([csr.col.numpy(), pairs[:, 1], [-1] * 5, [-1, 0]]).astype(np.int32)
+    return csr, u, v
+
+
+@pytest.mark.parametrize("width", [16, 64])
+@pytest.mark.parametrize("name", ["er", "kron", "ws", "triangle", "karate"])
+def test_count_csr_matches_reference_gather_and_pallas(name, width, small_graphs, rng):
+    edges = ingest(KARATE)[0].edge_array() if name == "karate" else small_graphs[name]
+    csr, u, v = csr_queries(edges, rng)
+    got = ops.intersect_count_csr(csr.row_offsets, csr.col, torch.from_numpy(u),
+                                  torch.from_numpy(v), width)
+    a, b, _, _ = ref_gather_panels_arrays(
+        *(jnp.asarray(t.numpy()) for t in (csr.row_offsets, csr.col, csr.out_degree)),
+        jnp.asarray(u), jnp.asarray(v), width)
+    want = intersect_count_pallas(a, b, interpret=True)
+    assert got.dtype == torch.int32 and got.shape == (u.shape[0],)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got[-7:].tolist() == [0] * 7  # padding rows count nothing
+
+
+def test_count_csr_cuts_lists_to_the_width(rng):
+    """A list longer than the bucket width is cut to its first ``width``
+    entries, as the panel gather cuts it."""
+    ro = torch.tensor([0, 40, 80], dtype=torch.int32)
+    col = torch.from_numpy(np.concatenate([np.arange(40), np.arange(20, 60)]).astype(np.int32))
+    u, v = torch.tensor([0, 1], dtype=torch.int32), torch.tensor([1, 0], dtype=torch.int32)
+    # lists [0, 40) and [20, 60): 20 common; cut to 32 entries: [0, 32) and [20, 52)
+    assert ops.intersect_count_csr(ro, col, u, v, 64).tolist() == [20, 20]
+    assert ops.intersect_count_csr(ro, col, u, v, 32).tolist() == [12, 12]
+
+
+def test_count_csr_rejects_mixed_devices_and_cpu_tensors_on_the_kernel():
+    z = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        triangle_count.intersect_count_csr_cuda(z, z, z, z, 16)
+    with pytest.raises(ValueError, match="all CUDA or all CPU"):
+        ops.intersect_count_csr(z, z, z.to("meta"), z, 16)
+
+
 def test_import_without_cuda_or_nvcc():
     """Importing the kernel package needs no nvcc, no card and builds nothing."""
     code = (
@@ -135,3 +190,16 @@ def test_cuda_kernels_match_plain_on_card(rng):
         c = torch.from_numpy(random_panels(rng, b, lv, np.int32)).cuda()
         for g, w in zip(ops.intersect_support(a, c), ref.intersect_support_ref(a, c)):
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_count_csr_matches_plain_on_card(small_graphs, rng):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs these checks on one)")
+    for name in small_graphs:
+        csr, u, v = csr_queries(small_graphs[name], rng)
+        dev = [t.cuda() for t in (csr.row_offsets, csr.col, torch.from_numpy(u), torch.from_numpy(v))]
+        for width in (16, 64, 256, 4096):
+            got = ops.intersect_count_csr(*dev, width)
+            assert torch.equal(got.cpu(), ops.intersect_count_csr(
+                csr.row_offsets, csr.col, torch.from_numpy(u), torch.from_numpy(v), width))
