@@ -7,32 +7,41 @@ Run from the root of a checkout, with no arguments::
 Phases, each of which fails loudly (non-zero exit, no final line):
 
 1. device  — a CUDA card is required; prints its nvidia-smi name and power limit;
-2. build   — builds the two kernel libraries (intersection: the panel and
-             CSR count kernels; flash attention) from their ``csrc/``, one
-             nvcc per source, all started together;
+2. build   — builds the two kernel libraries (intersection: the panel
+             kernels and the family that reads the CSR; flash attention)
+             from their ``csrc/``, one nvcc per source, all started together;
 3. kernels — each panel kernel bit-equal to its plain PyTorch version on
              random panels (int32 and int16), all-padding rows, B = 0,
-             widths 4096 and 16384, and real kron-21 panel chunks; the CSR
-             count kernel bit-equal to its plain version (gather + count) on
-             synthetic CSRs (du > dv and du < dv, empty lists, chunk padding,
-             lists longer than its shared-memory share) and on the first and
-             last chunk of every kron-21 width bucket;
+             widths 4096 and 16384, and real kron-21 panel chunks; the three
+             CSR kernels (count, per-node, support) bit-equal to their plain
+             versions (gather, panel reduction and, for per-node and
+             support, the scatter) on whole output vectors, on synthetic
+             CSRs (du > dv and du < dv, empty lists, chunk padding, lists
+             longer than the shared-memory share, outputs cut short so the
+             index clipping runs) and on the whole of the first and last
+             chunk of every kron-21 width bucket, where each also equals the
+             panel kernel route (panel kernel, then the scatter);
 4. karate  — the CLI (``python -m repro_torch.launch.count``) counts 45;
 5. kron-13 — 1,180,718 triangles through wedge_bsearch, panel and pallas at
              two budgets; Σ per_node and Σ edge_support = 3T through pallas;
 6. kron-21 — the full-size graph (R-MAT scale 21, edge factor 16, seed 1503):
              count through auto (resolving to pallas), pallas at 2^26 and 2^24,
-             wedge_bsearch at 2^26; per_node and edge_support through pallas.
-             The pallas counts run the CSR count kernel once per chunk and the
-             panel count kernel never; per_node and support run their panel
-             kernels once per chunk.  At 2^26 the pallas count and the gather
-             route it replaced also count the resident oriented CSR, for their
-             peak device memory above it;
+             wedge_bsearch at 2^26; per_node and edge_support through pallas
+             at 2^26 on the resident oriented CSR.  The pallas runs launch
+             their CSR kernel once per chunk and no panel kernel.  At 2^26
+             the gather route the CSR kernels replaced (panel gather, panel
+             kernel, scatter) also runs on the resident CSR; each run's peak
+             device memory above it is recorded, and the per-node and support
+             vectors of the two routes must be equal element by element;
 7. timing  — each kernel on the two largest real chunk shapes: its time
              (CUDA events, median), its bound, the plain version's time; for
-             the CSR count kernel also the gather + panel kernel it replaces;
-8. profile — the kron-21 pallas count under torch.profiler: device busy
-             time by kernel against the run's wall time;
+             the CSR kernels also the gather route they replace; on the
+             widest chunk the per-chunk zero + fold of the int32 partial;
+8. profile — the kron-21 pallas count, per_node and edge_support on the
+             edge list under torch.profiler: device busy time by kernel
+             against wall time.  The per_node and edge_support runs are the
+             main path's: each launches its CSR kernel once per chunk and no
+             other kernel, and its vector equals phase 6's CSR run's;
 9. attention_kernel — the flash-attention kernel against its plain version
              (``flash_attention_torch``) and the dense oracle on the card: the
              reference test's five cases, a causal Sq > Skv case (its rows
@@ -83,10 +92,18 @@ REPLACES = {
     "intersect_support": "src/repro/kernels/triangle_count/triangle_count.py:244",
 }
 SOURCE = "src/repro_torch/kernels/triangle_count/csrc/intersect.cu"
-CSR_SOURCE = "src/repro_torch/kernels/triangle_count/csrc/count_csr.cu"
-# the CSR count kernel replaces the Pallas count kernel and the panel gather before it
-CSR_REPLACES = ("src/repro/kernels/triangle_count/triangle_count.py:223 "
-                "(with gather_panels_arrays, src/repro/core/count.py:315)")
+CSR_SOURCE = "src/repro_torch/kernels/triangle_count/csrc/intersect_csr.cu"
+CSR_KERNELS = ("intersect_count_csr", "intersect_per_node_csr", "intersect_support_csr")
+# each CSR kernel replaces a Pallas kernel with the panel gather before it
+# and, for per-node and support, the engine's scatter after it
+_GATHER = "gather_panels_arrays, src/repro/core/count.py:315"
+CSR_REPLACES = {
+    "intersect_count_csr": f"{REPLACES['intersect_count']} (with {_GATHER})",
+    "intersect_per_node_csr": f"{REPLACES['intersect_per_node']} (with {_GATHER}, and "
+                              "_panel_scatter_per_node, src/repro/core/engine.py:357)",
+    "intersect_support_csr": f"{REPLACES['intersect_support']} (with {_GATHER}, and "
+                             "_panel_scatter_support, src/repro/core/engine.py:373)",
+}
 # float32 outside the tensor cores, the closest published rate to the
 # kernels' int32 compares (H100 SXM data sheet)
 SCALAR_OPS_PER_S = 67e12
@@ -301,44 +318,64 @@ def phase_kernels_synthetic(cmp: Compare):
 
 
 class CsrCompare:
-    """Holds every comparison of the CSR count kernel with its plain version."""
+    """Holds every comparison of the CSR kernels with their plain versions."""
 
     def __init__(self):
-        self.max_abs_err = 0
-        self.cases = 0
+        self.max_abs_err = {k: 0 for k in CSR_KERNELS}
+        self.cases = {k: 0 for k in CSR_KERNELS}
 
-    def run(self, row_offsets, col, u, v, width: int, label: str, rows=None, panel=None):
-        """The kernel on (u, v) vs gather + plain count, bit for bit.
+    def _held(self, kernel, got, want, label):
+        check(got.dtype == torch.int32 and got.shape == want.shape,
+              f"{kernel} on {label}: {got.dtype}{tuple(got.shape)} vs {tuple(want.shape)}")
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
+        self.max_abs_err[kernel] = max(self.max_abs_err[kernel], err)
+        check(err == 0, f"{kernel} disagrees on {label} (max abs err {err})")
 
-        ``rows`` restricts the plain side to those rows (rows are
-        independent); ``panel`` is the panel kernel's count of the same
-        chunk, which the kernel must equal on every row.
+    def run(self, row_offsets, col, u, v, width: int, label: str, *, edge_idx, n_out: int,
+            m_out: int, panels=None):
+        """The three CSR kernels on the rows (u, v) vs their plain versions,
+        bit for bit, on whole output vectors.  ``panels = (a, b)`` are the
+        chunk's gathered panels: each kernel must then also equal the panel
+        kernel route on the same rows (the panel count; the panel per-node
+        and support kernels followed by the scatter).
         """
         from repro_torch.kernels.triangle_count import ref
-        from repro_torch.kernels.triangle_count.triangle_count import intersect_count_csr_cuda
+        from repro_torch.kernels.triangle_count import triangle_count as tc
 
-        got = intersect_count_csr_cuda(row_offsets, col, u, v, width)
+        got = tc.intersect_count_csr_cuda(row_offsets, col, u, v, width)
+        got_pn = tc.intersect_per_node_csr_cuda(row_offsets, col, u, v, width, n_out)
+        got_sp = tc.intersect_support_csr_cuda(row_offsets, col, u, v, edge_idx, width, m_out)
         torch.cuda.synchronize()
-        pu, pv = (u, v) if rows is None else (u[rows], v[rows])
-        want = ref.intersect_count_csr_ref(row_offsets, col, pu, pv, width)
-        g = got if rows is None else got[rows]
-        check(got.dtype == torch.int32 and got.shape == u.shape and g.shape == want.shape,
-              f"intersect_count_csr on {label}: {got.dtype}{tuple(got.shape)}")
-        err = int((g.to(torch.int64) - want.to(torch.int64)).abs().max()) if g.numel() else 0
-        if panel is not None:
-            err = max(err, int((got.to(torch.int64) - panel.to(torch.int64)).abs().max())
-                      if got.numel() else 0)
-        self.max_abs_err = max(self.max_abs_err, err)
-        check(err == 0, f"intersect_count_csr disagrees with its plain version on {label} "
-                        f"(max abs err {err})")
-        self.cases += 1
+        self._held("intersect_count_csr", got,
+                   ref.intersect_count_csr_ref(row_offsets, col, u, v, width), label)
+        self._held("intersect_per_node_csr", got_pn,
+                   ref.intersect_per_node_csr_ref(row_offsets, col, u, v, width, n_out), label)
+        self._held("intersect_support_csr", got_sp,
+                   ref.intersect_support_csr_ref(row_offsets, col, u, v, edge_idx, width, m_out),
+                   label)
+        if panels is not None:
+            a, b = panels
+            self._held("intersect_count_csr", got, tc.intersect_count_cuda(a, b),
+                       f"{label} (panel count kernel)")
+            cnt, arm = tc.intersect_per_node_cuda(a, b)
+            self._held("intersect_per_node_csr", got_pn,
+                       ref.panel_scatter_per_node(u, v, a, cnt, arm, n_out=n_out),
+                       f"{label} (panel per-node kernel + scatter)")
+            cnt, arm, clo = tc.intersect_support_cuda(a, b)
+            self._held("intersect_support_csr", got_sp,
+                       ref.panel_scatter_support(edge_idx, u, v, row_offsets, cnt, arm, clo,
+                                                 m_out=m_out),
+                       f"{label} (panel support kernel + scatter)")
+        for k in CSR_KERNELS:
+            self.cases[k] += 1
 
 
 def synthetic_csr(rng, n, max_deg, rows, long_rows=0):
     """A CSR of ``n`` nodes with sorted random out-lists of 0..max_deg entries
     (node 0 empty, node 1 at max_deg), and ``rows`` query pairs: every 7th u
     and every 11th v is −1 (chunk padding), and pairs with du > dv, du < dv
-    and empty lists are present by construction."""
+    and empty lists are present by construction.  Returns the CSR, u, v,
+    query edge ids (−1 on padding rows) and the vertex count the lists name."""
     deg = rng.integers(0, max_deg + 1, size=n)
     deg[0], deg[1], deg[2] = 0, max_deg, max(1, max_deg // 3)
     deg[3:3 + long_rows] = max_deg
@@ -350,27 +387,36 @@ def synthetic_csr(rng, n, max_deg, rows, long_rows=0):
     u[:4], v[:4] = (1, 2, 0, 1), (2, 1, 1, 0)  # du > dv, du < dv, empty u, empty v
     u[4::7] = -1
     v[5::11] = -1
-    return [torch.from_numpy(x).to("cuda") for x in (ro, col, u, v)]
+    e = np.where((u >= 0) & (v >= 0), np.arange(rows) % max(col.shape[0], 1), -1).astype(np.int32)
+    n_vertices = max(n, int(col.max()) + 1 if col.size else 0)
+    return [torch.from_numpy(x).to("cuda") for x in (ro, col, u, v, e)] + [n_vertices]
 
 
 def phase_csr_synthetic(ccmp: CsrCompare):
-    """The CSR count kernel on synthetic CSRs, one per lane-group size and
-    with lists past its 1024-entry shared-memory share (searched in global
-    memory), including lists longer than the bucket width (cut to it)."""
+    """The CSR kernels on synthetic CSRs, one per lane-group size and with
+    lists past the 1024-entry shared-memory share (searched in global
+    memory), including lists longer than the bucket width (cut to it); one
+    case again with n_out and m_out cut to half, so the kernels clip their
+    scatter indices as the plain scatter does."""
     rng = np.random.default_rng(31)
     done = []
     for n, max_deg, rows, width in ((64, 16, 1000, 16), (200, 64, 3000, 64),
                                     (300, 256, 2000, 256), (120, 1024, 700, 1024),
                                     (60, 3000, 400, 4096), (60, 3000, 400, 2048),
                                     (60, 3000, 400, 1024), (9, 40, 5, 16)):
-        ro, col, u, v = synthetic_csr(rng, n, max_deg, rows, long_rows=min(8, n - 3))
-        ccmp.run(ro, col, u, v, width, f"synthetic n={n} max_deg={max_deg} width={width}")
+        ro, col, u, v, e, n_vert = synthetic_csr(rng, n, max_deg, rows, long_rows=min(8, n - 3))
+        label = f"synthetic n={n} max_deg={max_deg} width={width}"
+        ccmp.run(ro, col, u, v, width, label, edge_idx=e, n_out=n_vert, m_out=col.shape[0])
+        if width == 64:
+            ccmp.run(ro, col, u, v, width, f"{label}, outputs cut to half", edge_idx=e,
+                     n_out=n_vert // 2, m_out=col.shape[0] // 2)
         done.append({"n": n, "max_deg": max_deg, "rows": rows, "width": width})
     empty = torch.empty((0,), dtype=torch.int32, device="cuda")
-    ro, col, _, _ = synthetic_csr(rng, 8, 8, 8)
-    ccmp.run(ro, col, empty, empty, 16, "B = 0")
-    emit({"phase": "csr_synthetic", "cases": done, "checked": ccmp.cases,
-          "max_abs_err": ccmp.max_abs_err})
+    ro, col, _, _, _, n_vert = synthetic_csr(rng, 8, 8, 8)
+    ccmp.run(ro, col, empty, empty, 16, "B = 0", edge_idx=empty, n_out=n_vert,
+             m_out=col.shape[0])
+    emit({"phase": "csr_synthetic", "cases": done, "checked": dict(ccmp.cases),
+          "max_abs_err": dict(ccmp.max_abs_err)})
 
 
 def real_chunks(csr, budget):
@@ -384,11 +430,15 @@ def real_chunks(csr, budget):
     return by_width
 
 
+def chunk_tensors(csr, chunk):
+    """The chunk's u, v and query edge ids on the card."""
+    return [torch.from_numpy(x).to(csr.device) for x in (chunk.u, chunk.v, chunk.edge_idx)]
+
+
 def gather(csr, chunk):
     from repro_torch.core.count import gather_panels_arrays
 
-    u = torch.from_numpy(chunk.u).to(csr.device)
-    v = torch.from_numpy(chunk.v).to(csr.device)
+    u, v, _ = chunk_tensors(csr, chunk)
     a, b, _, _ = gather_panels_arrays(csr.row_offsets, csr.col, csr.out_degree, u, v,
                                       chunk.width)
     return a.contiguous(), b.contiguous()
@@ -396,8 +446,10 @@ def gather(csr, chunk):
 
 def phase_kernels_real(cmp: Compare, ccmp: CsrCompare, csr, chunks):
     """Kernels vs plain on real kron-21 chunks: first and last of each bucket.
-    The CSR count kernel is also held against the panel count kernel (itself
-    checked here) on every row of the chunk."""
+    The CSR kernels run on the whole chunk on both sides, at the shapes the
+    main path gives them, and are also held against the panel kernel route
+    (the panel kernels themselves checked here) on the same rows.  The panel
+    kernels' plain side is capped to a row sample on the widest buckets."""
     rng = np.random.default_rng(21)
     done = []
     for width in sorted(chunks):
@@ -411,15 +463,16 @@ def phase_kernels_real(cmp: Compare, ccmp: CsrCompare, csr, chunks):
                 rows = torch.from_numpy(np.sort(rng.choice(n, size=cap, replace=False))).to(a.device)
             label = f"kron-21 chunk width {width} rows {n}"
             cmp.run(a, b, label, rows=rows)
-            from repro_torch.kernels.triangle_count.triangle_count import intersect_count_cuda
-
-            u, v = (torch.from_numpy(x).to(csr.device) for x in (ch.u, ch.v))
-            ccmp.run(csr.row_offsets, csr.col, u, v, width, label, rows=rows,
-                     panel=intersect_count_cuda(a, b))
-            done.append({"width": width, "rows": n, "plain_rows": n if rows is None else int(rows.numel())})
+            u, v, e = chunk_tensors(csr, ch)
+            t0 = time.perf_counter()
+            ccmp.run(csr.row_offsets, csr.col, u, v, width, label, edge_idx=e,
+                     n_out=csr.n_nodes, m_out=csr.n_directed_edges, panels=(a, b))
+            done.append({"width": width, "rows": n, "csr_plain_rows": n,
+                         "panel_plain_rows": n if rows is None else int(rows.numel()),
+                         "csr_check_s": time.perf_counter() - t0})
     emit({"phase": "kernels_real", "chunks": done, "cases": dict(cmp.cases),
-          "max_abs_err": cmp.max_abs_err, "csr_cases": ccmp.cases,
-          "csr_max_abs_err": ccmp.max_abs_err})
+          "max_abs_err": cmp.max_abs_err, "csr_cases": dict(ccmp.cases),
+          "csr_max_abs_err": dict(ccmp.max_abs_err)})
 
 
 # ---------------------------------------------------------------------------
@@ -481,35 +534,54 @@ def phase_kron13():
                          "n_chunks": st.n_chunks, "seconds": sec})
     pn, st, _, ln = run_engine("per_node", edges, "pallas", 1 << 16)
     check(int(pn.sum()) == 3 * T13, f"kron-13 Σ per_node {int(pn.sum())} != 3T")
-    check(ln["intersect_per_node"] == st.n_chunks, "kron-13 per_node launches != chunks")
+    check(ln["intersect_per_node_csr"] == st.n_chunks and ln["intersect_per_node"] == 0,
+          f"kron-13 per_node: {ln['intersect_per_node_csr']} CSR launches, "
+          f"{ln['intersect_per_node']} panel launches, {st.n_chunks} chunks")
     es, st, _, ln = run_engine("edge_support", edges, "pallas", 1 << 16)
     check(int(es.sum()) == 3 * T13, f"kron-13 Σ edge_support {int(es.sum())} != 3T")
-    check(ln["intersect_support"] == st.n_chunks, "kron-13 support launches != chunks")
+    check(ln["intersect_support_csr"] == st.n_chunks and ln["intersect_support"] == 0,
+          f"kron-13 support: {ln['intersect_support_csr']} CSR launches, "
+          f"{ln['intersect_support']} panel launches, {st.n_chunks} chunks")
     emit({"phase": "kron13", "runs": runs, "per_node_sum": int(pn.sum()),
           "edge_support_sum": int(es.sum())})
 
 
 def register_gather_route():
-    """``method="pallas_gather"``: the count route before the CSR kernel (panel
-    gather with torch ops, then the panel count kernel), run beside the main
-    path for comparison only."""
+    """``method="pallas_gather"``: the route before the CSR kernels (panel
+    gather with torch ops, the panel kernel, and for per-node and support the
+    torch-ops scatter), run beside the main path for comparison only."""
     from repro_torch.core import engine
 
     class GatherRoute(engine.PallasBackend):
         name = "pallas_gather"
         count_chunk = engine.PanelBackend.count_chunk
+        per_node_chunk = engine.PanelBackend.per_node_chunk
+        support_chunk = engine.PanelBackend.support_chunk
 
     engine.register_backend("pallas_gather",
                             lambda widths=engine.DEFAULT_WIDTHS, **_: GatherRoute(widths))
 
 
+def check_launches(ln, kernel, n_chunks, label):
+    """``kernel`` launched once per chunk of the run, and no other kernel."""
+    check(ln[kernel] == n_chunks,
+          f"{label}: {ln[kernel]} {kernel} launches != {n_chunks} chunks")
+    check(ln[kernel] > 0, f"{label}: {kernel} never launched")
+    others = {k: n for k, n in ln.items() if k != kernel and n}
+    check(not others, f"{label}: other kernels launched {others}")
+
+
 def phase_kron21(edges, csr):
-    """The full-size main path; returns each kernel's launches on its run.
+    """The full-size count on the main path, and the per-node and support
+    runs on the resident CSR beside the gather route.
 
     ``csr`` is the graph's oriented CSR, resident on the card: the 2^26
-    pallas count and the gather route count it (preprocess skipped), so
-    their peaks above it are the count's own."""
+    pallas runs and the gather route also run on it (preprocess skipped),
+    so their peaks above it are the workload's own.  Returns the count's
+    launches on the user's edge-list call, and the per-node and support
+    vectors of the CSR runs (phase 8 holds the edge-list runs to them)."""
     main_launches = {}
+    vectors = {}
     runs = []
 
     def one(kind, method, budget, expect, kernel=None, graph=edges):
@@ -531,35 +603,36 @@ def phase_kron21(edges, csr):
         if kernel is not None:
             check(st.method in ("pallas", "pallas_gather"),
                   f"kron-21 {kind} {method}: executed {st.method}")
-            check(ln[kernel] == st.n_chunks,
-                  f"kron-21 {kind} {method} {budget}: {ln[kernel]} {kernel} launches "
-                  f"!= {st.n_chunks} chunks")
-            check(ln[kernel] > 0, f"kron-21 {kind}: {kernel} never launched")
-            others = {k: n for k, n in ln.items() if k != kernel and n}
-            check(not others, f"kron-21 {kind} {method} {budget}: other kernels launched {others}")
+            check_launches(ln, kernel, st.n_chunks, f"kron-21 {kind} {method} {budget}")
         emit({"phase": "kron21_run", **rec})
         runs.append(rec)
-        return ln
+        return ln, value
 
     # warm run: first-use costs (allocator, library load) stay out of the timed runs
     t0 = time.perf_counter()
     run_engine("count", edges, "pallas", BUDGETS_21[0])
     emit({"phase": "kron21_warm", "seconds": time.perf_counter() - t0})
 
-    one("count", "auto", BUDGETS_21[0], T21, "intersect_count_csr")
-    ln = one("count", "pallas", BUDGETS_21[0], T21, "intersect_count_csr", graph=csr)
+    ln, _ = one("count", "auto", BUDGETS_21[0], T21, "intersect_count_csr")
     main_launches["intersect_count_csr"] = ln["intersect_count_csr"]
     main_launches["intersect_count"] = ln["intersect_count"]  # 0: the count reads the CSR
+    one("count", "pallas", BUDGETS_21[0], T21, "intersect_count_csr", graph=csr)
     one("count", "pallas", BUDGETS_21[1], T21, "intersect_count_csr")
-    register_gather_route()  # the old count route, for its execute time and peak memory
+    register_gather_route()  # the old routes, for their execute time and peak memory
     one("count", "pallas_gather", BUDGETS_21[0], T21, "intersect_count", graph=csr)
     one("count", "wedge_bsearch", BUDGETS_21[0], T21)
-    main_launches["intersect_per_node"] = one(
-        "per_node", "pallas", BUDGETS_21[0], 3 * T21, "intersect_per_node")["intersect_per_node"]
-    main_launches["intersect_support"] = one(
-        "edge_support", "pallas", BUDGETS_21[0], 3 * T21, "intersect_support")["intersect_support"]
+    for kind, kernel, panel in (("per_node", "intersect_per_node_csr", "intersect_per_node"),
+                                ("edge_support", "intersect_support_csr", "intersect_support")):
+        _, fused = one(kind, "pallas", BUDGETS_21[0], 3 * T21, kernel, graph=csr)
+        _, gathered = one(kind, "pallas_gather", BUDGETS_21[0], 3 * T21, panel, graph=csr)
+        check(fused.shape == gathered.shape and np.array_equal(fused, gathered),
+              f"kron-21 {kind}: the pallas vector differs from the gather route's in "
+              f"{int((fused != gathered).sum())} of {fused.size} elements")
+        emit({"phase": "kron21_vectors", "kind": kind, "elements": int(fused.size),
+              "equal_to_gather_route": True, "sum": int(fused.sum())})
+        vectors[kind] = fused
     check(runs[0]["resolved_method"] == "pallas", "kron-21: auto did not resolve to pallas")
-    return main_launches
+    return main_launches, vectors
 
 
 # ---------------------------------------------------------------------------
@@ -610,20 +683,25 @@ def bound(a, b, kind, rate):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, n_ops
 
 
-def csr_bound(csr, u, v, width, rate):
-    """Least time for the CSR count kernel's work on this chunk.
+def csr_bound(csr, u, v, width, rate, row_bytes, out=None):
+    """Least time for a CSR kernel's work on this chunk.
 
     Bytes: each distinct list the chunk's valid rows name (cut to
-    ``width``) read once, however many rows share it, and per row u, v, two
-    row_offsets pairs and the count.  Compares: one binary search of the
-    longer list per entry of the shorter.
+    ``width``) read once, however many rows share it; ``row_bytes`` a row
+    (u, v and two row_offsets pairs, 24 B; plus the count the count kernel
+    writes, or the ``edge_idx`` support reads); and, given the chunk's
+    per-vertex or per-edge ``out``, each slot its hits touch (the nonzero
+    slots) read and written once.  Compares: one binary
+    search of the longer list per entry of the shorter.
     """
     valid = (u >= 0) & (v >= 0)
     deg = (csr.row_offsets[1:] - csr.row_offsets[:-1]).to(torch.int64)
     du = torch.where(valid, deg[u.clamp(min=0).long()].clamp(max=width), 0)
     dv = torch.where(valid, deg[v.clamp(min=0).long()].clamp(max=width), 0)
     nodes = torch.unique(torch.cat([u[valid], v[valid]])).long()
-    n_bytes = 4 * int(deg[nodes].clamp(max=width).sum()) + u.shape[0] * (4 + 4 + 16 + 4)
+    n_bytes = 4 * int(deg[nodes].clamp(max=width).sum()) + u.shape[0] * row_bytes
+    if out is not None:
+        n_bytes += 8 * int(torch.count_nonzero(out))
     lo, hi = torch.minimum(du, dv).to(torch.float64), torch.maximum(du, dv).to(torch.float64)
     n_ops = int((lo * torch.ceil(torch.log2(hi + 1))).sum())
     t_bytes, t_ops = n_bytes / rate, n_ops / SCALAR_OPS_PER_S
@@ -632,19 +710,16 @@ def csr_bound(csr, u, v, width, rate):
 
 def phase_timing(csr, chunks, rate):
     from repro_torch.kernels.triangle_count import ref
-    from repro_torch.kernels.triangle_count.triangle_count import (
-        intersect_count_csr_cuda,
-        intersect_count_cuda,
-        intersect_per_node_cuda,
-        intersect_support_cuda,
-    )
+    from repro_torch.kernels.triangle_count import triangle_count as tc
 
-    cuda = {"intersect_count": intersect_count_cuda,
-            "intersect_per_node": intersect_per_node_cuda,
-            "intersect_support": intersect_support_cuda}
+    cuda = {"intersect_count": tc.intersect_count_cuda,
+            "intersect_per_node": tc.intersect_per_node_cuda,
+            "intersect_support": tc.intersect_support_cuda}
     plain = {"intersect_count": ref.intersect_count_ref,
              "intersect_per_node": ref.intersect_per_node_ref,
              "intersect_support": ref.intersect_support_ref}
+    n_out, m_out = csr.n_nodes, csr.n_directed_edges
+    ro, col = csr.row_offsets, csr.col
     widths = sorted(chunks)[-2:]
     results = {}
     for width in widths:
@@ -659,27 +734,74 @@ def phase_timing(csr, chunks, rate):
                    "plain_ms": p_ms, "library_ms": None}
             emit({"phase": "timing", **rec})
             results[(k, width)] = rec
-        # the CSR count kernel against the gather + panel kernel it replaces
-        ch = chunks[width][0]
-        u, v = (torch.from_numpy(x).to(csr.device) for x in (ch.u, ch.v))
+        del a, b
+        # each CSR kernel against the gather route it replaces: gather, panel
+        # kernel and, for per-node and support, the torch-ops scatter
+        u, v, e = chunk_tensors(csr, chunks[width][0])
 
-        def gather_panel():
-            pa, pb, _, _ = ref.gather_panels_arrays(csr.row_offsets, csr.col, csr.out_degree,
-                                                    u, v, width)
-            return intersect_count_cuda(pa, pb)
+        def gathered():
+            pa, pb, _, _ = ref.gather_panels_arrays(ro, col, csr.out_degree, u, v, width)
+            return pa, pb
 
-        fused = lambda: intersect_count_csr_cuda(csr.row_offsets, csr.col, u, v, width)  # noqa: E731
-        p_ms = time_ms(lambda: ref.intersect_count_csr_ref(csr.row_offsets, csr.col, u, v, width),
-                       reps=3, warm=1)
-        b_ms, b_by, n_bytes, n_ops = csr_bound(csr, u, v, width, rate)
-        rec = {"kernel": "intersect_count_csr", "width": width, "rows": rows,
-               "ms": time_ms(fused, reps=15, batch=10),
-               "gather_panel_ms": time_ms(gather_panel, reps=15, batch=10),
-               "ms_single_launch": time_ms(fused, reps=15),
-               "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "compares": n_ops,
-               "plain_ms": p_ms, "library_ms": None}
-        emit({"phase": "timing", **rec})
-        results[("intersect_count_csr", width)] = rec
+        def route_count():
+            return tc.intersect_count_cuda(*gathered())
+
+        def route_per_node():
+            pa, pb = gathered()
+            return ref.panel_scatter_per_node(u, v, pa, *tc.intersect_per_node_cuda(pa, pb),
+                                              n_out=n_out)
+
+        def route_support():
+            pa, pb = gathered()
+            return ref.panel_scatter_support(e, u, v, ro, *tc.intersect_support_cuda(pa, pb),
+                                             m_out=m_out)
+
+        csr_runs = {
+            "intersect_count_csr": (lambda: tc.intersect_count_csr_cuda(ro, col, u, v, width),
+                                    lambda: ref.intersect_count_csr_ref(ro, col, u, v, width),
+                                    route_count, 28),
+            "intersect_per_node_csr": (
+                lambda: tc.intersect_per_node_csr_cuda(ro, col, u, v, width, n_out),
+                lambda: ref.intersect_per_node_csr_ref(ro, col, u, v, width, n_out),
+                route_per_node, 24),
+            "intersect_support_csr": (
+                lambda: tc.intersect_support_csr_cuda(ro, col, u, v, e, width, m_out),
+                lambda: ref.intersect_support_csr_ref(ro, col, u, v, e, width, m_out),
+                route_support, 28),
+        }
+        for k, (fused, plain_fn, route, row_bytes) in csr_runs.items():
+            out = fused()
+            b_ms, b_by, n_bytes, n_ops = csr_bound(
+                csr, u, v, width, rate, row_bytes, None if k == "intersect_count_csr" else out)
+            rec = {"kernel": k, "width": width, "rows": rows,
+                   "ms": time_ms(fused, reps=15, batch=10),
+                   "gather_panel_ms": time_ms(route, reps=15, batch=10),
+                   "ms_single_launch": time_ms(fused, reps=15),
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "compares": n_ops,
+                   "plain_ms": time_ms(plain_fn, reps=3, warm=1), "library_ms": None}
+            if k != "intersect_count_csr":
+                # the atomics: slots the hits touch, and the most hits on one slot
+                rec["touched_slots"] = int(torch.count_nonzero(out))
+                rec["max_slot_adds"] = int(out.max())
+            emit({"phase": "timing", **rec})
+            results[(k, width)] = rec
+            del out
+    # the engine's per-chunk zero of the int32 partial and its fold into the
+    # int64 accumulator (run_workload), for per-node and for support
+    for kind, n in (("per_node", n_out), ("support", m_out)):
+        acc = torch.zeros((n,), dtype=torch.int64, device=csr.device)
+
+        def zero_fold():
+            acc.add_(torch.zeros((n,), dtype=torch.int32, device=csr.device))
+
+        rec = {"phase": "zero_fold", "kind": kind, "slots": n,
+               "zero_ms": time_ms(lambda: torch.zeros((n,), dtype=torch.int32,
+                                                      device=csr.device), reps=15, batch=10),
+               "zero_fold_ms": time_ms(zero_fold, reps=15, batch=10),
+               "bytes": n * (4 + 4 + 8 + 8), "bound_ms": n * (4 + 4 + 8 + 8) / rate * 1e3}
+        emit(rec)
+        results[("zero_fold", kind)] = rec
+        del acc
     return results, widths[-1]
 
 
@@ -713,15 +835,36 @@ def profiled(fn):
             "top_device": [{"name": k[:80], "s": us / 1e6, "calls": n} for k, us, n in rows[:10]]}
 
 
-def phase_profile(edges):
-    """One kron-21 pallas count under torch.profiler: device busy vs wall."""
+def phase_profile(edges, vectors):
+    """One kron-21 pallas count, per_node and edge_support on the edge list,
+    each under torch.profiler: device busy vs wall.  The per_node and
+    edge_support runs are the main path's: each launches its CSR kernel once
+    per chunk and no other kernel, and returns the vector of the CSR run in
+    phase 6 (``vectors``).  Returns their launches."""
     from repro_torch.core import TriangleCounter
+    from repro_torch.kernels.triangle_count import launches, reset_launches
 
     tc = TriangleCounter(method="pallas", max_wedge_chunk=BUDGETS_21[0])
-    got = {}
-    rec = profiled(lambda: got.update(t=tc.count(edges)))
-    check(got["t"] == T21, f"kron-21 profiled count {got['t']} != {T21}")
-    emit({"phase": "profile", "timings": tc.last_stats.timings, **rec})
+    main_launches = {}
+    for kind, kernel, panel in (("count", None, None),
+                                ("per_node", "intersect_per_node_csr", "intersect_per_node"),
+                                ("edge_support", "intersect_support_csr", "intersect_support")):
+        got = {}
+        reset_launches()
+        rec = profiled(lambda: got.update(r=getattr(tc, kind)(edges)))
+        ln = dict(launches)
+        value = got["r"] if kind == "count" else int(got["r"].sum())
+        expect = T21 if kind == "count" else 3 * T21
+        check(value == expect, f"kron-21 profiled {kind} {value} != {expect}")
+        if kernel is not None:
+            check_launches(ln, kernel, tc.last_stats.n_chunks, f"kron-21 {kind} on the edge list")
+            check(np.array_equal(got["r"], vectors[kind]),
+                  f"kron-21 {kind}: the edge-list run and the CSR run differ")
+            main_launches[kernel] = ln[kernel]
+            main_launches[panel] = ln[panel]  # 0: the CSR kernel adds its hits itself
+        emit({"phase": "profile", "kind": kind, "timings": tc.last_stats.timings,
+              "n_chunks": tc.last_stats.n_chunks, "launches": ln, **rec})
+    return main_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1182,8 +1325,9 @@ def main() -> int:
     emit({"phase": "kron21_generate", "seconds": time.perf_counter() - t0,
           "canonical_rows": int(edges.shape[0])})
     csr = prepare_oriented(edges, device="cuda")
-    main_launches = phase_kron21(edges, csr)
-    phase_profile(edges)
+    main_launches, vectors = phase_kron21(edges, csr)
+    main_launches.update(phase_profile(edges, vectors))
+    del vectors
     del edges
     chunks = real_chunks(csr, BUDGETS_21[0])
     phase_kernels_real(cmp, ccmp, csr, chunks)
@@ -1195,16 +1339,17 @@ def main() -> int:
     fa_launches, _ = phase_lm_serve(rate)
     fa_time = phase_attention_timing(rate)
 
-    t = timing[("intersect_count_csr", top)]
-    kernels = [{
-        "name": "intersect_count_csr", "route": "cuda", "source": CSR_SOURCE,
-        "replaces": CSR_REPLACES, "launches": main_launches["intersect_count_csr"],
-        "max_abs_err": ccmp.max_abs_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
-        "gather_panel_ms": t["gather_panel_ms"], "checked_cases": ccmp.cases,
-        "shape": [t["rows"], top], "on_main_path": True,
-    }]
-    check(main_launches["intersect_count_csr"] > 0, "intersect_count_csr was not launched")
+    kernels = []
+    for k in CSR_KERNELS:
+        t = timing[(k, top)]
+        kernels.append({
+            "name": k, "route": "cuda", "source": CSR_SOURCE, "replaces": CSR_REPLACES[k],
+            "launches": main_launches[k], "max_abs_err": ccmp.max_abs_err[k], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "gather_panel_ms": t["gather_panel_ms"],
+            "checked_cases": ccmp.cases[k], "shape": [t["rows"], top], "on_main_path": True,
+        })
+        check(main_launches[k] > 0, f"{k} was not launched on the main path")
     for k in KERNELS:
         t = timing[(k, top)]
         kernels.append({
@@ -1213,13 +1358,11 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "checked_cases": cmp.cases[k], "shape": [t["rows"], top, top],
-            # the panel count is ops.intersect_count's route; the engine's
-            # count reads the CSR, so its main-path launches are 0
-            "on_main_path": k != "intersect_count",
+            # the panel kernels are ops.intersect_*'s route; the engine's
+            # pallas paths read the CSR, so their main-path launches are 0
+            "on_main_path": False,
         })
-        if k != "intersect_count":
-            check(main_launches[k] > 0, f"{k} was not launched on the main path")
-    check(main_launches["intersect_count"] == 0, "the panel count ran on the main path")
+        check(main_launches[k] == 0, f"the panel kernel {k} ran on the main path")
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
         "launches": fa_launches, "max_abs_err": fa_err, "ms": fa_time["ms"],

@@ -42,6 +42,7 @@ from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.distributed.compression import ensure_fits_int32
 from repro_torch.kernels.triangle_count import ops as tc_ops
+from repro_torch.kernels.triangle_count.ref import panel_scatter_per_node, panel_scatter_support
 
 from .count import (
     expand_and_close_wedges,
@@ -228,42 +229,6 @@ def chunk_support_kernel(
     out = torch.zeros((m_dir,), dtype=torch.int32, device=col.device)
     for idx in (uv_idx, uw_idx, vw_idx):
         out.index_add_(0, idx, inc)
-    return out
-
-
-def _panel_scatter_per_node(u, v, a, count, arm, *, n_out):
-    """Scatter a panel chunk's (count, arm) to per-vertex int32 slots.
-
-    ``count`` bills each hit to the endpoints ``u``/``v``; ``arm`` bills
-    it to the third vertex, the value in the ``a`` panel.  Padding carries
-    zero counts, so its clipped indices never corrupt real slots.  Only
-    the nonzero arms are scattered: the rest are mostly −1 padding, whose
-    clipped index 0 would serialize every add of a chunk on one slot.
-    """
-    out = torch.zeros((n_out,), dtype=torch.int32, device=count.device)
-    out.index_add_(0, u.clamp(0, n_out - 1), torch.where(u >= 0, count, 0))
-    out.index_add_(0, v.clamp(0, n_out - 1), torch.where(v >= 0, count, 0))
-    hit = arm > 0
-    out.index_add_(0, a[hit], arm[hit])
-    return out
-
-
-def _panel_scatter_support(edge_idx, u, v, row_offsets, count, arm, closure, *, m_out):
-    """Scatter (count, arm, closure) to the three directed-edge int32 slots.
-
-    Base ``(u, v)`` is the chunk's global query id; arm slot ``j`` is edge
-    ``row_offsets[u] + j``; closure slot ``k`` is ``row_offsets[v] + k``.
-    Lanes past a row's length carry zero counts.
-    """
-    out = torch.zeros((m_out,), dtype=torch.int32, device=count.device)
-    out.index_add_(
-        0, edge_idx.clamp(0, m_out - 1), torch.where(edge_idx >= 0, count, 0)
-    )
-    for side, vals in ((u, arm), (v, closure)):
-        lane = torch.arange(vals.shape[1], dtype=torch.int32, device=vals.device)
-        base = row_offsets[side.clamp(min=0)][:, None]
-        idx = (base + lane[None, :]).clamp_(0, m_out - 1)
-        out.index_add_(0, idx.reshape(-1), vals.reshape(-1))
     return out
 
 
@@ -588,12 +553,12 @@ class PanelBackend(KernelBackend):
     def per_node_chunk(self, adj, chunk, n_out):
         u, v, a, b = self._gather(adj, chunk)
         count, arm = self.intersect_per_node(a, b)
-        return _panel_scatter_per_node(u, v, a, count, arm, n_out=n_out)
+        return panel_scatter_per_node(u, v, a, count, arm, n_out=n_out)
 
     def support_chunk(self, adj, chunk, m_out):
         u, v, a, b = self._gather(adj, chunk)
         count, arm, closure = self.intersect_support(a, b)
-        return _panel_scatter_support(
+        return panel_scatter_support(
             adj.put(chunk.edge_idx), u, v, adj.row_offsets, count, arm, closure,
             m_out=m_out,
         )
@@ -603,19 +568,32 @@ class PallasBackend(PanelBackend):
     """The panel plan driving the hand-written CUDA kernel family.
 
     Registered as ``"pallas"``, the reference's name for its kernel
-    backend.  Identical planning and scatters to :class:`PanelBackend`;
-    the intersections run in :mod:`repro_torch.kernels.triangle_count`
-    (the CUDA kernels on the card, their plain versions on CPU tensors).
-    The count reads the CSR directly (``intersect_count_csr``) and gathers
-    no panels; per-node and support still gather them.
+    backend.  Identical planning to :class:`PanelBackend`; each chunk is
+    one call into :mod:`repro_torch.kernels.triangle_count` (the CUDA
+    kernels on the card, their plain versions on CPU tensors) that reads
+    both lists of every row from the CSR: no panels are gathered, and the
+    per-node and support kernels add their hits into the chunk's int32
+    partial themselves, with no scatter after them.  The ``intersect_*``
+    panel methods (``ops.intersect_*``) serve :class:`PanelBackend`'s
+    gather route when a subclass takes its chunk methods.
     """
 
     name = "pallas"
 
     def count_chunk(self, adj, chunk):
-        # the gather is fused into the kernel: it reads both lists from the CSR
         return tc_ops.intersect_count_csr(
             adj.row_offsets, adj.col, adj.put(chunk.u), adj.put(chunk.v), chunk.width
+        )
+
+    def per_node_chunk(self, adj, chunk, n_out):
+        return tc_ops.intersect_per_node_csr(
+            adj.row_offsets, adj.col, adj.put(chunk.u), adj.put(chunk.v), chunk.width, n_out
+        )
+
+    def support_chunk(self, adj, chunk, m_out):
+        return tc_ops.intersect_support_csr(
+            adj.row_offsets, adj.col, adj.put(chunk.u), adj.put(chunk.v),
+            adj.put(chunk.edge_idx), chunk.width, m_out,
         )
 
     def intersect_count(self, a, b):

@@ -7,7 +7,9 @@ from . import ops, ref
 from .triangle_count import (
     intersect_count_csr_cuda,
     intersect_count_cuda,
+    intersect_per_node_csr_cuda,
     intersect_per_node_cuda,
+    intersect_support_csr_cuda,
     intersect_support_cuda,
     launches,
     reset_launches,
@@ -19,7 +21,9 @@ __all__ = [
     "intersect_count_cuda",
     "intersect_count_csr_cuda",
     "intersect_per_node_cuda",
+    "intersect_per_node_csr_cuda",
     "intersect_support_cuda",
+    "intersect_support_csr_cuda",
     "launches",
     "reset_launches",
 ]

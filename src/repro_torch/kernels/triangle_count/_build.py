@@ -1,8 +1,8 @@
 """The intersection kernels' shared library (``csrc/``).
 
-The panel kernel family (``csrc/intersect.cu``) and the count kernel that
-reads the CSR (``csrc/count_csr.cu``), one ``nvcc`` each, linked into one
-library.  Built at first use by the port's shared builder
+The panel kernel family (``csrc/intersect.cu``) and the family that reads
+the CSR (``csrc/intersect_csr.cu``: count, per-node, support), one ``nvcc``
+each, linked into one library.  Built at first use by the port's shared builder
 (:class:`repro_torch.kernels._build.KernelLibrary`); nothing builds at
 import time.
 """
@@ -27,16 +27,17 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    fn = lib.tc_count_csr_launch
+    fn = lib.tc_intersect_csr_launch
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return lib
 
 
-LIBRARY = KernelLibrary("tc_intersect", [_CSRC / "intersect.cu", _CSRC / "count_csr.cu"],
+LIBRARY = KernelLibrary("tc_intersect", [_CSRC / "intersect.cu", _CSRC / "intersect_csr.cu"],
                         _declare)
 
 

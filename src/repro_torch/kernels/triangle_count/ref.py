@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["intersect_count_ref", "intersect_per_node_ref", "intersect_support_ref",
-           "gather_panels_arrays", "intersect_count_csr_ref"]
+           "gather_panels_arrays", "panel_scatter_per_node", "panel_scatter_support",
+           "intersect_count_csr_ref", "intersect_per_node_csr_ref", "intersect_support_csr_ref"]
 
 _CUBE_ELEMS = 1 << 26
 
@@ -81,8 +82,64 @@ def gather_panels_arrays(row_offsets, col, out_degree, u, v, width: int):
     return a, b, a_len, b_len
 
 
-def intersect_count_csr_ref(row_offsets, col, u, v, width: int) -> torch.Tensor:
-    """The CSR count kernel's function: the panel gather, then the count."""
+def panel_scatter_per_node(u, v, a, count, arm, *, n_out):
+    """Scatter a panel chunk's (count, arm) to per-vertex int32 slots.
+
+    ``count`` bills each hit to the endpoints ``u``/``v``; ``arm`` bills
+    it to the third vertex, the value in the ``a`` panel.  Indices are
+    clipped to ``[0, n_out)`` as the reference clips them; padding carries
+    zero counts, so its clipped indices never corrupt real slots.  Only
+    the nonzero arms are scattered: the rest are mostly −1 padding, whose
+    clipped index 0 would serialize every add of a chunk on one slot.
+    """
+    out = torch.zeros((n_out,), dtype=torch.int32, device=count.device)
+    out.index_add_(0, u.clamp(0, n_out - 1), torch.where(u >= 0, count, 0))
+    out.index_add_(0, v.clamp(0, n_out - 1), torch.where(v >= 0, count, 0))
+    hit = arm > 0
+    out.index_add_(0, a[hit].clamp(0, n_out - 1), arm[hit])
+    return out
+
+
+def panel_scatter_support(edge_idx, u, v, row_offsets, count, arm, closure, *, m_out):
+    """Scatter (count, arm, closure) to the three directed-edge int32 slots.
+
+    Base ``(u, v)`` is the chunk's global query id; arm slot ``j`` is edge
+    ``row_offsets[u] + j``; closure slot ``k`` is ``row_offsets[v] + k``.
+    Lanes past a row's length carry zero counts.
+    """
+    out = torch.zeros((m_out,), dtype=torch.int32, device=count.device)
+    out.index_add_(
+        0, edge_idx.clamp(0, m_out - 1), torch.where(edge_idx >= 0, count, 0)
+    )
+    for side, vals in ((u, arm), (v, closure)):
+        lane = torch.arange(vals.shape[1], dtype=torch.int32, device=vals.device)
+        base = row_offsets[side.clamp(min=0)][:, None]
+        idx = (base + lane[None, :]).clamp_(0, m_out - 1)
+        out.index_add_(0, idx.reshape(-1), vals.reshape(-1))
+    return out
+
+
+def _csr_panels(row_offsets, col, u, v, width: int):
     out_degree = row_offsets[1:] - row_offsets[:-1]
     a, b, _, _ = gather_panels_arrays(row_offsets, col, out_degree, u, v, width)
-    return intersect_count_ref(a, b)
+    return a, b
+
+
+def intersect_count_csr_ref(row_offsets, col, u, v, width: int) -> torch.Tensor:
+    """The CSR count kernel's function: the panel gather, then the count."""
+    return intersect_count_ref(*_csr_panels(row_offsets, col, u, v, width))
+
+
+def intersect_per_node_csr_ref(row_offsets, col, u, v, width: int, n_out: int) -> torch.Tensor:
+    """The CSR per-node kernel's function: gather, per-node reduction, scatter."""
+    a, b = _csr_panels(row_offsets, col, u, v, width)
+    count, arm = intersect_per_node_ref(a, b)
+    return panel_scatter_per_node(u, v, a, count, arm, n_out=n_out)
+
+
+def intersect_support_csr_ref(row_offsets, col, u, v, edge_idx, width: int,
+                              m_out: int) -> torch.Tensor:
+    """The CSR support kernel's function: gather, support reduction, scatter."""
+    a, b = _csr_panels(row_offsets, col, u, v, width)
+    count, arm, closure = intersect_support_ref(a, b)
+    return panel_scatter_support(edge_idx, u, v, row_offsets, count, arm, closure, m_out=m_out)

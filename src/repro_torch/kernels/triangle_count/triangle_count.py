@@ -14,10 +14,13 @@ element type and on which outputs it writes, serves all three members:
     adds the closure attribution, one slot per v-neighbor (replaces
     ``intersect_support_pallas``).
 
-``intersect_count_csr_cuda`` (``csrc/count_csr.cu``) is the count with the
-panel gather fused in: it takes the chunk's ``u, v`` and the CSR and reads
-each row's two lists straight from it, so the engine's count path
-materialises no panels.
+``intersect_count_csr_cuda``, ``intersect_per_node_csr_cuda`` and
+``intersect_support_csr_cuda`` (``csrc/intersect_csr.cu``, one kernel
+templated on the mode) take the chunk's ``u, v`` and the CSR and read each
+row's two lists straight from it: the panel gather is fused in, and the
+per-node and support kernels add each hit into the chunk's per-vertex or
+per-edge output with atomics, so the engine's ``pallas`` paths materialise
+no panels and no attribution arrays.
 
 The TPU kernel reduces an ``Lu × Lv`` equality cube per row to keep its
 vector unit full.  The rows are sorted, so here each lane binary-searches
@@ -38,6 +41,8 @@ __all__ = [
     "intersect_per_node_cuda",
     "intersect_support_cuda",
     "intersect_count_csr_cuda",
+    "intersect_per_node_csr_cuda",
+    "intersect_support_csr_cuda",
     "launches",
     "reset_launches",
     "DEFAULT_WARPS_PER_BLOCK",
@@ -45,10 +50,11 @@ __all__ = [
 
 # one count per kernel, raised by one at each launch (never for B == 0)
 launches = {"intersect_count": 0, "intersect_per_node": 0, "intersect_support": 0,
-            "intersect_count_csr": 0}
+            "intersect_count_csr": 0, "intersect_per_node_csr": 0, "intersect_support_csr": 0}
 
 DEFAULT_WARPS_PER_BLOCK = 8
 _MODES = {"intersect_count": 0, "intersect_per_node": 1, "intersect_support": 2}
+_CSR_MODES = {"intersect_count_csr": 0, "intersect_per_node_csr": 1, "intersect_support_csr": 2}
 _ELEM_BYTES = {torch.int32: 4, torch.int16: 2}
 
 
@@ -135,8 +141,11 @@ def intersect_support_cuda(a: torch.Tensor, b: torch.Tensor, tiles=None):
     return count, arm, closure
 
 
-def _check_csr(row_offsets, col, u, v, width) -> None:
-    for name, t in (("row_offsets", row_offsets), ("col", col), ("u", u), ("v", v)):
+def _check_csr(row_offsets, col, u, v, width, edge_idx=None) -> None:
+    named = [("row_offsets", row_offsets), ("col", col), ("u", u), ("v", v)]
+    if edge_idx is not None:
+        named.append(("edge_idx", edge_idx))
+    for name, t in named:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
         if not t.is_cuda:
@@ -151,10 +160,37 @@ def _check_csr(row_offsets, col, u, v, width) -> None:
             raise ValueError(f"{name} lies on {t.device}, u on {u.device}")
     if u.shape != v.shape:
         raise ValueError(f"u and v differ in shape ({tuple(u.shape)} vs {tuple(v.shape)})")
+    if edge_idx is not None and edge_idx.shape != u.shape:
+        raise ValueError(f"edge_idx and u differ in shape "
+                         f"({tuple(edge_idx.shape)} vs {tuple(u.shape)})")
     if row_offsets.shape[0] < 1:
         raise ValueError("row_offsets must hold n + 1 >= 1 entries")
     if int(width) < 1:
         raise ValueError(f"width={width}: must be >= 1")
+
+
+def _check_n_out(n_out) -> int:
+    if int(n_out) < 1:
+        raise ValueError(f"n_out={n_out}: must be >= 1")
+    return int(n_out)
+
+
+def _launch_csr(kind: str, row_offsets, col, u, v, edge_idx, width, out, n_out) -> None:
+    n = u.shape[0]
+    if n == 0:
+        return
+    from ._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = lib.tc_intersect_csr_launch(
+            _CSR_MODES[kind], row_offsets.data_ptr(), col.data_ptr(), u.data_ptr(),
+            v.data_ptr(), edge_idx.data_ptr() if edge_idx is not None else None,
+            n, int(width), out.data_ptr(), int(n_out), stream)
+    if err != 0:
+        raise RuntimeError(f"{kind} kernel launch failed: cudaError_t {err}")
+    launches[kind] += 1
 
 
 def intersect_count_csr_cuda(row_offsets: torch.Tensor, col: torch.Tensor, u: torch.Tensor,
@@ -163,17 +199,29 @@ def intersect_count_csr_cuda(row_offsets: torch.Tensor, col: torch.Tensor, u: to
     entries; 0 where u or v is −1.  The lists are read from the CSR."""
     _check_csr(row_offsets, col, u, v, width)
     count = torch.empty(u.shape, dtype=torch.int32, device=u.device)
-    n = u.shape[0]
-    if n == 0:
-        return count
-    from ._build import load_library
-
-    lib = load_library()
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = lib.tc_count_csr_launch(row_offsets.data_ptr(), col.data_ptr(), u.data_ptr(),
-                                      v.data_ptr(), n, int(width), count.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"intersect_count_csr kernel launch failed: cudaError_t {err}")
-    launches["intersect_count_csr"] += 1
+    _launch_csr("intersect_count_csr", row_offsets, col, u, v, None, width, count, u.shape[0])
     return count
+
+
+def intersect_per_node_csr_cuda(row_offsets: torch.Tensor, col: torch.Tensor, u: torch.Tensor,
+                                v: torch.Tensor, width: int, n_out: int) -> torch.Tensor:
+    """(n_out,) int32 triangle incidences of the chunk's rows: each common
+    entry x of the two lists (cut to ``width``) adds 1 to x, and each row's
+    count adds to u and to v.  Indices are clipped to [0, n_out)."""
+    _check_csr(row_offsets, col, u, v, width)
+    out = torch.zeros((_check_n_out(n_out),), dtype=torch.int32, device=u.device)
+    _launch_csr("intersect_per_node_csr", row_offsets, col, u, v, None, width, out, n_out)
+    return out
+
+
+def intersect_support_csr_cuda(row_offsets: torch.Tensor, col: torch.Tensor, u: torch.Tensor,
+                               v: torch.Tensor, edge_idx: torch.Tensor, width: int,
+                               m_out: int) -> torch.Tensor:
+    """(m_out,) int32 per-directed-edge support of the chunk's rows: each
+    common entry adds 1 to the two CSR edges that hold it (slot j of u's
+    list, slot k of v's), and each row's count adds to ``edge_idx``.
+    Indices are clipped to [0, m_out); ``edge_idx`` −1 adds nothing."""
+    _check_csr(row_offsets, col, u, v, width, edge_idx)
+    out = torch.zeros((_check_n_out(m_out),), dtype=torch.int32, device=u.device)
+    _launch_csr("intersect_support_csr", row_offsets, col, u, v, edge_idx, width, out, m_out)
+    return out

@@ -39,7 +39,7 @@ def test_digest_covers_flags(tmp_path):
 
 @pytest.mark.parametrize("lib,needed", [
     (fa_build.LIBRARY, {"flash_attention.cu", "hopper.cuh"}),
-    (tc_build.LIBRARY, {"intersect.cu", "count_csr.cu"}),
+    (tc_build.LIBRARY, {"intersect.cu", "intersect_csr.cu"}),
 ])
 def test_family_libraries_hash_their_whole_csrc(lib, needed):
     assert needed <= {p.name for p in lib.inputs()}
@@ -76,7 +76,7 @@ def test_each_source_gets_its_own_nvcc_then_one_link(tmp_path, monkeypatch):
     kinds = [k for k, _ in events]
     assert kinds == ["start", "start", "wait", "wait", "link"]
     compiled = [cmd[-1].rsplit("/", 1)[-1] for k, cmd in events if k == "start"]
-    assert compiled == ["intersect.cu", "count_csr.cu"]
+    assert compiled == ["intersect.cu", "intersect_csr.cu"]
     assert all("-c" in cmd and "-shared" not in cmd for k, cmd in events if k == "start")
     assert "-shared" in events[-1][1] and out.exists()
     assert info["built"] and info["log"].count("ptxas") == 2

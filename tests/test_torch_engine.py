@@ -135,6 +135,43 @@ def test_pallas_count_reads_the_csr_without_gathering(graphs, reference_results,
     assert_stats_equal(ref.last_stats, port.last_stats)
 
 
+@pytest.mark.parametrize("budget", [None, 48])
+@pytest.mark.parametrize("name", ["kron", "karate"])
+def test_pallas_per_node_and_support_read_the_csr_without_gathering(graphs, monkeypatch,
+                                                                    name, budget):
+    """The kernel backend's per-node and support go through
+    ``ops.intersect_per_node_csr`` / ``ops.intersect_support_csr`` once per
+    chunk and never through the panel gather; per-node, support,
+    clustering and transitivity equal the reference's pallas results."""
+    from repro_torch.kernels.triangle_count import ops as tc_ops
+
+    def no_gather(*_):
+        raise AssertionError("the pallas backend gathered panels")
+
+    calls = {"intersect_per_node_csr": 0, "intersect_support_csr": 0}
+    monkeypatch.setattr(port_engine.PanelBackend, "_gather", no_gather)
+    for op in calls:
+        real = getattr(tc_ops, op)
+
+        def counted(*a, _real=real, _op=op):
+            calls[_op] += 1
+            return _real(*a)
+
+        monkeypatch.setattr(tc_ops, op, counted)
+    edges = graphs[name]
+    ref = RefCounter(method="pallas", max_wedge_chunk=budget)
+    port = TriangleCounter(method="pallas", max_wedge_chunk=budget, device="cpu")
+
+    np.testing.assert_array_equal(port.per_node(edges), ref.per_node(edges))
+    assert calls["intersect_per_node_csr"] == port.last_stats.n_chunks > 0
+    assert_stats_equal(ref.last_stats, port.last_stats)
+    np.testing.assert_array_equal(port.edge_support(edges), ref.edge_support(edges))
+    assert calls["intersect_support_csr"] == port.last_stats.n_chunks
+    assert_stats_equal(ref.last_stats, port.last_stats)
+    np.testing.assert_array_equal(port.clustering(edges), ref.clustering(edges))
+    assert port.transitivity(edges) == ref.transitivity(edges)
+
+
 def test_plan_edge_chunks_invariants():
     rng = np.random.default_rng(0)
     reps = rng.integers(0, 50, size=500)
