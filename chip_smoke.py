@@ -42,6 +42,27 @@ Phases, each of which fails loudly (non-zero exit, no final line):
              against wall time.  The per_node and edge_support runs are the
              main path's: each launches its CSR kernel once per chunk and no
              other kernel, and its vector equals phase 6's CSR run's;
+8a. doulion — ``count_triangles_doulion`` on kron-21 through pallas at 2^26:
+             p = 1.0 returns the int T21; p = 0.5 and 0.1 (seed 0) record the
+             estimate, its error against T21 and its wall against phase 6's
+             exact count, split into sampling and counting; at p = 0.1
+             wedge_bsearch gives the same estimate.  Each pallas run launches
+             the count kernel once per chunk and no other kernel;
+8b. report — ``graph_report`` on the resident kron-21 CSR (auto → pallas,
+             2^26, no truss): T21, Σ support = 3·T21, the transitivity from
+             the edge list's degrees, the top-5 nodes and edges of phase 6's
+             vectors; each CSR kernel once per chunk; the stage timings;
+8c. truss  — ``k_truss_decomposition`` of kron-16 (seed 1503, 2^22) through
+             pallas equals the wedge_bsearch peel (trussness, rounds, max_k);
+             the support kernel launches once per chunk of every round; the
+             per-round split of the wall (host plan, execute, fold, the
+             sub-CSR filter and upload, the rest).  The CSR with a −1 tail as
+             long as itself, pow2 buckets: the real edges' support and a zero
+             tail.  On kron-12 the pallas
+             trussness equals an independent scipy peel ((A·A) ∘ A);
+8d. analyze_cli — ``python -m repro_torch.launch.analyze`` on karate on the
+             card: 45 triangles, transitivity 135/528, max_k 5 and the
+             spectrum {2: 11, 3: 42, 4: 11, 5: 14}, every stage pallas;
 9. attention_kernel — the flash-attention kernel against its plain version
              (``flash_attention_torch``) and the dense oracle on the card: the
              reference test's five cases, a causal Sq > Skv case (its rows
@@ -64,7 +85,8 @@ Phases, each of which fails loudly (non-zero exit, no final line):
 11. attention timing — the kernel at the serving shape against its bound,
              its plain version and ``scaled_dot_product_attention``.
 
-The last two lines are the ``kernels`` JSON line and
+The ``kernels`` line gives rows 1-3 an ``analytics_launches`` field: their
+launches in phases 8a-8c.  The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -579,7 +601,8 @@ def phase_kron21(edges, csr):
     pallas runs and the gather route also run on it (preprocess skipped),
     so their peaks above it are the workload's own.  Returns the count's
     launches on the user's edge-list call, and the per-node and support
-    vectors of the CSR runs (phase 8 holds the edge-list runs to them)."""
+    vectors of the CSR runs (phase 8 holds the edge-list runs to them), and
+    the seconds of the count on the edge list (DOULION's yardstick)."""
     main_launches = {}
     vectors = {}
     runs = []
@@ -632,7 +655,7 @@ def phase_kron21(edges, csr):
               "equal_to_gather_route": True, "sum": int(fused.sum())})
         vectors[kind] = fused
     check(runs[0]["resolved_method"] == "pallas", "kron-21: auto did not resolve to pallas")
-    return main_launches, vectors
+    return main_launches, vectors, runs[0]["seconds"]
 
 
 # ---------------------------------------------------------------------------
@@ -865,6 +888,343 @@ def phase_profile(edges, vectors):
         emit({"phase": "profile", "kind": kind, "timings": tc.last_stats.timings,
               "n_chunks": tc.last_stats.n_chunks, "launches": ln, **rec})
     return main_launches
+
+
+# ---------------------------------------------------------------------------
+# phases 8a-8d: DOULION and the analytics path
+# ---------------------------------------------------------------------------
+
+TRUSS_SCALE, TRUSS_SEED, TRUSS_BUDGET = 16, 1503, 1 << 22
+ORACLE_SCALE = 12
+KARATE_SPECTRUM = {"2": 11, "3": 42, "4": 11, "5": 14}  # ROADMAP A2's gate
+
+
+def sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+class calls_recorded:
+    """Records each ``TriangleCounter.count`` call made inside the block: its
+    seconds (ending in a synchronize) and its ``last_stats``."""
+
+    def __enter__(self):
+        from repro_torch.core.engine import TriangleCounter
+
+        self.cls, self.real, self.calls = TriangleCounter, TriangleCounter.count, []
+
+        def count(tc, *args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            value = self.real(tc, *args, **kwargs)
+            sync()
+            self.calls.append((time.perf_counter() - t0, tc.last_stats))
+            return value
+
+        TriangleCounter.count = count
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.count = self.real
+
+
+class rounds_recorded:
+    """Times every peel round of ``k_truss_decomposition`` (its
+    ``_alive_support``) and the plan / execute / fold of the support run
+    inside it, by wrapping both module functions for the block."""
+
+    def __enter__(self):
+        from repro_torch.analytics import support, truss
+
+        self.mods = (truss, support)
+        self.real_round, self.real_run = truss._alive_support, support.run_workload
+        self.rounds = []  # (round seconds, plan, execute, fold, alive edges)
+
+        def run(*args, **kwargs):
+            value, plan = self.real_run(*args, **kwargs)
+            self._timings = plan.timings
+            return value, plan
+
+        def one_round(src0, col0, idx, *args):
+            self._timings = {"plan": 0.0, "execute": 0.0, "fold": 0.0}
+            t0 = time.perf_counter()
+            out = self.real_round(src0, col0, idx, *args)
+            sync()
+            t = self._timings
+            self.rounds.append((time.perf_counter() - t0, t["plan"], t["execute"], t["fold"],
+                                idx.shape[0]))
+            return out
+
+        truss._alive_support, support.run_workload = one_round, run
+        return self
+
+    def __exit__(self, *exc):
+        truss, support = self.mods
+        truss._alive_support, support.run_workload = self.real_round, self.real_run
+
+    def split(self, wall: float) -> dict:
+        r = np.array(self.rounds, dtype=np.float64).reshape(-1, 5)
+        in_rounds = float(r[:, 0].sum())
+        plan, execute, fold = (float(r[:, i].sum()) for i in (1, 2, 3))
+        return {"rounds_s": in_rounds, "plan_s": plan, "execute_s": execute, "fold_s": fold,
+                "filter_upload_s": in_rounds - plan - execute - fold,
+                "outside_rounds_s": wall - in_rounds, "edge_rounds": int(r[:, 4].sum()),
+                "round_ms_median": float(np.median(r[:, 0])) * 1e3 if len(r) else None,
+                "round_ms_max": float(r[:, 0].max()) * 1e3 if len(r) else None}
+
+
+def phase_doulion(edges, exact_s: float, device="cuda"):
+    """DOULION on kron-21 through pallas: p = 1.0 is the exact int T21; p =
+    0.5 and 0.1 (seed 0) are recorded against T21 and the exact count's wall
+    (phase 6); at p = 0.1 the kept edges counted by wedge_bsearch give the
+    same estimate.  Each pallas run launches the count kernel once per chunk
+    and nothing else.  Returns the count kernel's launches."""
+    from repro_torch.core import count_triangles_doulion
+    from repro_torch.kernels.triangle_count import launches, reset_launches
+
+    total = 0
+    estimates = {}
+    for p, method in ((1.0, "pallas"), (0.5, "pallas"), (0.1, "pallas"), (0.1, "wedge_bsearch")):
+        reset_launches()
+        with calls_recorded() as rec:
+            sync()
+            t0 = time.perf_counter()
+            est = count_triangles_doulion(edges, p=p, seed=0, method=method,
+                                          max_wedge_chunk=BUDGETS_21[0], device=device)
+            sync()
+            wall = time.perf_counter() - t0
+        ln = dict(launches)
+        check(len(rec.calls) == 1, f"doulion p={p}: {len(rec.calls)} counts, expected 1")
+        count_s, st = rec.calls[0]
+        if method == "pallas":
+            check_launches(ln, "intersect_count_csr", st.n_chunks, f"doulion p={p}")
+            total += ln["intersect_count_csr"]
+        else:
+            check(not any(ln.values()), f"doulion p={p} wedge_bsearch launched kernels {ln}")
+        if p == 1.0:
+            check(type(est) is int and est == T21, f"doulion p=1.0: {est!r} != {T21}")
+        estimates[(p, method)] = est
+        emit({"phase": "doulion", "p": p, "seed": 0, "method": method, "estimate": est,
+              "rel_err": abs(est - T21) / T21, "wall_s": wall, "sample_s": wall - count_s,
+              "count_s": count_s, "count_timings": st.timings, "n_chunks": st.n_chunks,
+              "kept_directed_edges": st.n_directed_edges, "exact_count_s": exact_s,
+              "vs_exact": wall / exact_s, "launches": ln})
+    check(estimates[(0.1, "pallas")] == estimates[(0.1, "wedge_bsearch")],
+          f"doulion p=0.1: pallas {estimates[(0.1, 'pallas')]!r} != wedge_bsearch "
+          f"{estimates[(0.1, 'wedge_bsearch')]!r}")
+    return total
+
+
+def top_k_of(per_node, support, u, v, k=5):
+    """The report's top-k, read independently from whole vectors."""
+    nodes = np.argsort(-per_node, kind="stable")[:k]
+    edges = np.argsort(-support, kind="stable")[:k]
+    return ([{"node": int(n), "triangles": int(per_node[n])} for n in nodes],
+            [{"u": int(u[e]), "v": int(v[e]), "support": int(support[e])} for e in edges])
+
+
+def phase_report(edges, csr, top_nodes, top_edges, device="cuda"):
+    """``graph_report`` on the resident kron-21 CSR without the truss: the
+    count is T21, Σ support 3·T21, the transitivity 3·T21 / Σ C(deg, 2) from
+    the edge list's degrees, and the top-5 nodes and edges those of phase 6's
+    vectors; each CSR kernel launches once per chunk (per-node shares the
+    count's plan).  Returns the launches."""
+    from repro_torch.analytics import graph_report
+    from repro_torch.kernels.triangle_count import launches, reset_launches
+
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    rep = graph_report(csr, method="auto", max_wedge_chunk=BUDGETS_21[0],
+                       include_truss=False, top_k=5, device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    ln = dict(launches)
+    deg = np.bincount(edges[:, 0]).astype(np.int64)
+    wedges = int((deg * (deg - 1) // 2).sum())
+    expect = T21
+    check(rep["triangles"] == expect, f"report: {rep['triangles']} triangles != {expect}")
+    check(rep["support"]["sum"] == 3 * expect, f"report: Σ support {rep['support']['sum']}")
+    check(rep["transitivity"] == 3.0 * expect / wedges,
+          f"report: transitivity {rep['transitivity']!r} != {3.0 * expect / wedges!r}")
+    check(rep["clustering"]["top_nodes"] == top_nodes,
+          f"report: top nodes {rep['clustering']['top_nodes']} != {top_nodes}")
+    check(rep["support"]["top_edges"] == top_edges,
+          f"report: top edges {rep['support']['top_edges']} != {top_edges}")
+    check(rep["engine"]["method"] == rep["support"]["method"] == "pallas",
+          f"report: methods {rep['engine']['method']}, {rep['support']['method']}")
+    n_chunks = rep["engine"]["n_chunks"]
+    for kernel, n in (("intersect_count_csr", n_chunks), ("intersect_per_node_csr", n_chunks),
+                      ("intersect_support_csr", rep["support"]["n_chunks"])):
+        check(ln[kernel] == n > 0, f"report: {ln[kernel]} {kernel} launches != {n} chunks")
+    check(not any(ln[k] for k in KERNELS), f"report: panel kernels launched {ln}")
+    emit({"phase": "report", "wall_s": wall, "timings_s": rep["timings_s"],
+          "engine_timings": rep["engine"]["timings"], "n_chunks": n_chunks,
+          "support_n_chunks": rep["support"]["n_chunks"], "transitivity": rep["transitivity"],
+          "average_clustering": rep["clustering"]["average"], "launches": ln})
+    return {k: ln[k] for k in CSR_KERNELS}
+
+
+def truss_oracle(edges):
+    """Trussness per undirected edge ``(lo, hi)`` by the reference's peel
+    rule, with support as ``(A·A) ∘ A`` on the alive adjacency (scipy):
+    every edge below k − 2 goes in one round, and k grows when none does."""
+    import scipy.sparse as sp
+
+    und = edges[edges[:, 0] < edges[:, 1]].astype(np.int64)
+    n = int(edges.max()) + 1
+    key = und[:, 0] * n + und[:, 1]
+    truss = np.full(len(und), 2, np.int64)
+    alive = np.arange(len(und))
+    k, rounds = 3, 0
+    sup = None
+    while alive.size:
+        if sup is None:
+            u, v = und[alive, 0], und[alive, 1]
+            a = sp.coo_matrix((np.ones(alive.size), (u, v)), shape=(n, n)).tocsr()
+            a = a + a.T
+            s = (a @ a).multiply(a).tocoo()
+            skey = s.row.astype(np.int64) * n + s.col
+            order = np.argsort(skey)
+            skey, sval = skey[order], np.asarray(s.data)[order]
+            pos = np.minimum(np.searchsorted(skey, key[alive]), max(len(skey) - 1, 0))
+            hit = (skey[pos] == key[alive]) if len(skey) else np.zeros(alive.size, bool)
+            sup = np.where(hit, sval[pos] if len(skey) else 0, 0).astype(np.int64)
+            rounds += 1
+        peel = sup < k - 2
+        if peel.any():
+            truss[alive[peel]] = k - 1
+            alive = alive[~peel]
+            sup = None
+        else:
+            k += 1
+    return dict(zip(key.tolist(), truss.tolist())), rounds
+
+
+def padded_support_check(edges, device):
+    """The peel's padding on the card: the whole oriented CSR with a −1 tail
+    as long as itself and pow2 row buckets (so every chunk holds rows with
+    u = v = edge_idx = −1) gives the engine's support on the real edges and
+    0 on the tail; the support kernel launches once per chunk.  Returns its
+    launches."""
+    from repro_torch.analytics import support_on_arrays
+    from repro_torch.core import TriangleCounter, prepare_oriented
+    from repro_torch.kernels.triangle_count import launches, reset_launches
+
+    csr = prepare_oriented(edges, device=device)
+    want = TriangleCounter(method="pallas", max_wedge_chunk=TRUSS_BUDGET,
+                           device=device).edge_support(csr)
+    m = csr.n_directed_edges
+    tail = torch.full((m,), -1, dtype=torch.int32, device=csr.device)
+    reset_launches()
+    run = support_on_arrays(csr.row_offsets, torch.cat([csr.src, tail]),
+                            torch.cat([csr.col, tail]), csr.out_degree,
+                            max_wedge_chunk=TRUSS_BUDGET, bucket_pow2=True, method="pallas",
+                            device=device)
+    ln = dict(launches)
+    check_launches(ln, "intersect_support_csr", run.n_chunks, "padded support")
+    check(np.array_equal(run.support[:m], want), "padded support differs on the real edges")
+    check(not run.support[m:].any(), "padded support wrote into the −1 tail")
+    emit({"phase": "truss_padding", "edges": m, "tail": m, "n_chunks": run.n_chunks,
+          "peak_wedge_buffer": run.peak_wedge_buffer, "launches": ln})
+    return ln["intersect_support_csr"]
+
+
+def phase_truss(device="cuda"):
+    """k-truss through pallas on kron-16 equals the wedge_bsearch peel
+    (trussness, rounds, max_k); the support kernel launches once per chunk of
+    every round and nothing else does.  On kron-12 the pallas trussness
+    equals :func:`truss_oracle`.  Returns the support kernel's launches."""
+    from repro_torch.analytics import k_truss_decomposition
+    from repro_torch.graphs import kronecker_rmat
+    from repro_torch.kernels.triangle_count import launches, reset_launches
+
+    total = 0
+    decs = {}
+    scale, oracle_scale = TRUSS_SCALE, ORACLE_SCALE
+    edges = kronecker_rmat(scale, edge_factor=16, seed=TRUSS_SEED)
+    for method in ("pallas", "wedge_bsearch"):
+        reset_launches()
+        with rounds_recorded() as rec:
+            sync()
+            t0 = time.perf_counter()
+            dec = k_truss_decomposition(edges, method=method, max_wedge_chunk=TRUSS_BUDGET,
+                                        device=device)
+            sync()
+            wall = time.perf_counter() - t0
+        ln = dict(launches)
+        check(dec.method == method, f"truss: executed {dec.method}, asked {method}")
+        check(len(rec.rounds) == dec.rounds, f"truss: {len(rec.rounds)} rounds timed, "
+                                             f"{dec.rounds} run")
+        if method == "pallas":
+            check_launches(ln, "intersect_support_csr", dec.n_support_launches,
+                           f"truss kron-{scale}")
+            total += ln["intersect_support_csr"]
+        else:
+            check(not any(ln.values()), f"truss wedge_bsearch launched kernels {ln}")
+        decs[method] = dec
+        emit({"phase": "truss", "graph": f"kron-{scale}", "method": method,
+              "edges": int(dec.n_edges), "max_k": dec.max_k, "rounds": dec.rounds,
+              "n_support_launches": dec.n_support_launches,
+              "spectrum_size": len(dec.spectrum()), "wall_s": wall, "split": rec.split(wall),
+              "launches": ln})
+    total += padded_support_check(edges, device)
+    a, b = decs["pallas"], decs["wedge_bsearch"]
+    check(np.array_equal(a.trussness, b.trussness),
+          f"truss kron-{scale}: pallas and wedge_bsearch differ on "
+          f"{int((a.trussness != b.trussness).sum())} edges")
+    check((a.rounds, a.max_k) == (b.rounds, b.max_k),
+          f"truss kron-{scale}: rounds/max_k {(a.rounds, a.max_k)} vs {(b.rounds, b.max_k)}")
+
+    small = kronecker_rmat(oracle_scale, edge_factor=16, seed=TRUSS_SEED)
+    reset_launches()
+    t0 = time.perf_counter()
+    dec = k_truss_decomposition(small, method="pallas", max_wedge_chunk=TRUSS_BUDGET,
+                                device=device)
+    wall = time.perf_counter() - t0
+    ln = dict(launches)
+    check_launches(ln, "intersect_support_csr", dec.n_support_launches,
+                   f"truss kron-{oracle_scale}")
+    total += ln["intersect_support_csr"]
+    t0 = time.perf_counter()
+    want, oracle_rounds = truss_oracle(small)
+    oracle_s = time.perf_counter() - t0
+    n = int(small.max()) + 1
+    lo = np.minimum(dec.u, dec.v).astype(np.int64)
+    hi = np.maximum(dec.u, dec.v).astype(np.int64)
+    got = dict(zip((lo * n + hi).tolist(), dec.trussness.tolist()))
+    check(got == want, f"truss kron-{oracle_scale}: pallas differs from the scipy oracle on "
+                       f"{sum(got.get(k) != t for k, t in want.items())} of {len(want)} edges")
+    emit({"phase": "truss_oracle", "graph": f"kron-{oracle_scale}", "edges": len(want),
+          "max_k": dec.max_k, "rounds": dec.rounds, "oracle_rounds": oracle_rounds,
+          "wall_s": wall, "oracle_s": oracle_s, "launches": ln})
+    return total
+
+
+def phase_analyze_cli():
+    """``python -m repro_torch.launch.analyze`` on karate, on the card: 45
+    triangles, transitivity 135/528, max_k 5 and the A2 spectrum, pallas."""
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.analyze",
+             "--input", os.path.join(HERE, "tests", "data", "karate.txt"),
+             "--json", "--cache-dir", tmp],
+            capture_output=True, text=True, env=env, cwd=HERE, timeout=600,
+        )
+        seconds = time.perf_counter() - t0
+    check(r.returncode == 0, f"analyze CLI failed ({r.returncode}):\n{r.stderr[-4000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    check(out["triangles"] == 45, f"analyze: {out['triangles']} triangles, expected 45")
+    check(out["transitivity"] == 135 / 528, f"analyze: transitivity {out['transitivity']!r}")
+    check(out["truss"]["max_k"] == 5, f"analyze: max_k {out['truss']['max_k']}")
+    check(out["truss"]["spectrum"] == KARATE_SPECTRUM, f"analyze: {out['truss']['spectrum']}")
+    check(out["engine"]["method"] == out["support"]["method"] == out["truss"]["method"]
+          == "pallas", f"analyze: methods {out['engine']['method']}, {out['truss']['method']}")
+    emit({"phase": "analyze_cli", "triangles": out["triangles"], "truss": out["truss"],
+          "timings_s": out["timings_s"], "seconds": seconds})
 
 
 # ---------------------------------------------------------------------------
@@ -1325,9 +1685,17 @@ def main() -> int:
     emit({"phase": "kron21_generate", "seconds": time.perf_counter() - t0,
           "canonical_rows": int(edges.shape[0])})
     csr = prepare_oriented(edges, device="cuda")
-    main_launches, vectors = phase_kron21(edges, csr)
+    main_launches, vectors, exact_s = phase_kron21(edges, csr)
     main_launches.update(phase_profile(edges, vectors))
+    top_nodes, top_edges = top_k_of(vectors["per_node"], vectors["edge_support"],
+                                    csr.src.cpu().numpy(), csr.col.cpu().numpy())
     del vectors
+    analytics_launches = {k: 0 for k in CSR_KERNELS}
+    analytics_launches["intersect_count_csr"] += phase_doulion(edges, exact_s)
+    for k, n in phase_report(edges, csr, top_nodes, top_edges).items():
+        analytics_launches[k] += n
+    analytics_launches["intersect_support_csr"] += phase_truss()
+    phase_analyze_cli()
     del edges
     chunks = real_chunks(csr, BUDGETS_21[0])
     phase_kernels_real(cmp, ccmp, csr, chunks)
@@ -1347,9 +1715,11 @@ def main() -> int:
             "launches": main_launches[k], "max_abs_err": ccmp.max_abs_err[k], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "gather_panel_ms": t["gather_panel_ms"],
+            "analytics_launches": analytics_launches[k],
             "checked_cases": ccmp.cases[k], "shape": [t["rows"], top], "on_main_path": True,
         })
         check(main_launches[k] > 0, f"{k} was not launched on the main path")
+        check(analytics_launches[k] > 0, f"{k} was not launched on the analytics path")
     for k in KERNELS:
         t = timing[(k, top)]
         kernels.append({

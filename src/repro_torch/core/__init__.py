@@ -7,9 +7,10 @@ Public API::
     tc = TriangleCounter(method="auto", max_wedge_chunk=1 << 22)  # on the card
     t = tc.count(edge_array)                                     # exact
     t = count_triangles(edge_array, method="pallas", device="cpu")
+    est = count_triangles_doulion(edge_array, p=0.25, seed=0)      # DOULION
 
-Only the ported names are exported; approximate counting, tuning,
-incremental and distributed counting arrive with later slices.
+Only the ported names are exported; tuning, incremental and distributed
+counting arrive with later slices.
 """
 from .preprocess import (
     OrientedCSR,
@@ -29,6 +30,8 @@ from .engine import (
     prepare_oriented,
     degree_histogram,
     search_steps,
+    next_pow2,
+    iter_wedge_chunks,
     chunk_count_kernel,
     chunk_per_node_kernel,
     chunk_support_kernel,
@@ -43,6 +46,7 @@ from .engine import (
     workload_from_csr,
     run_workload,
 )
+from .approx import count_triangles_doulion
 from .count import (
     WedgePlan,
     make_wedge_plan,
@@ -73,6 +77,8 @@ __all__ = [
     "prepare_oriented",
     "degree_histogram",
     "search_steps",
+    "next_pow2",
+    "iter_wedge_chunks",
     "chunk_count_kernel",
     "chunk_per_node_kernel",
     "chunk_support_kernel",
@@ -86,6 +92,7 @@ __all__ = [
     "make_workload",
     "workload_from_csr",
     "run_workload",
+    "count_triangles_doulion",
     "OrientedCSR",
     "preprocess",
     "preprocess_host_offload",

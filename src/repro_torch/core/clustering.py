@@ -1,17 +1,23 @@
 """Clustering coefficient and transitivity ratio (the paper's motivating
-applications, §I), routed through :class:`repro_torch.core.TriangleCounter`.
+applications, §I) — thin wrappers over :mod:`repro_torch.analytics.metrics`.
 
-Each function accepts raw canonical edge arrays, ``OrientedCSR`` objects
-and cached CSR files alike, and takes the engine's ``method`` /
-``max_wedge_chunk`` / ``device`` knobs.
+Every function routes through :class:`repro_torch.core.TriangleCounter`,
+accepts raw canonical edge arrays, ``OrientedCSR`` objects and cached CSR
+files alike, and takes the engine's ``method`` / ``max_wedge_chunk`` /
+``device`` knobs (``device=None``: the card).
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.analytics.metrics import clustering_from_counts, transitivity_from_counts
-
-from .engine import TriangleCounter, degree_histogram
+from repro_torch.analytics.metrics import (
+    average_clustering,
+    clustering_from_counts,
+    local_clustering,
+    node_triangle_features as _node_triangle_features,
+    transitivity as _transitivity,
+    transitivity_from_counts,
+)
 
 __all__ = [
     "clustering_from_counts",
@@ -28,8 +34,9 @@ def local_clustering_coefficient(
     max_wedge_chunk: int | None = None, device=None,
 ) -> np.ndarray:
     """c(v) = 2·T(v) / (deg(v)·(deg(v)−1)); 0 where degree < 2."""
-    tc = TriangleCounter(method=method, max_wedge_chunk=max_wedge_chunk, device=device)
-    return tc.clustering(edges, n_nodes)
+    return local_clustering(
+        edges, n_nodes, method=method, max_wedge_chunk=max_wedge_chunk, device=device
+    )
 
 
 def average_clustering_coefficient(
@@ -37,10 +44,9 @@ def average_clustering_coefficient(
     max_wedge_chunk: int | None = None, device=None,
 ) -> float:
     """Mean of the local clustering coefficients (Watts–Strogatz C̄)."""
-    cc = local_clustering_coefficient(
+    return average_clustering(
         edges, n_nodes, method=method, max_wedge_chunk=max_wedge_chunk, device=device
     )
-    return float(cc.mean()) if cc.size else 0.0
 
 
 def transitivity(
@@ -48,8 +54,9 @@ def transitivity(
     max_wedge_chunk: int | None = None, device=None,
 ) -> float:
     """3·#triangles / #wedges (the transitivity ratio)."""
-    tc = TriangleCounter(method=method, max_wedge_chunk=max_wedge_chunk, device=device)
-    return tc.transitivity(edges, n_nodes)
+    return _transitivity(
+        edges, n_nodes, method=method, max_wedge_chunk=max_wedge_chunk, device=device
+    )
 
 
 def node_triangle_features(
@@ -57,14 +64,6 @@ def node_triangle_features(
     max_wedge_chunk: int | None = None, device=None,
 ) -> np.ndarray:
     """(n, 3) float32 per-node feature block [degree, triangles, clustering]."""
-    deg, n_nodes = degree_histogram(edges, n_nodes)
-    if deg.size:
-        tc = TriangleCounter(method=method, max_wedge_chunk=max_wedge_chunk, device=device)
-        tri = tc.per_node(edges, n_nodes)
-        cc = clustering_from_counts(tri, deg)
-    else:
-        tri = np.zeros((n_nodes,), np.int64)
-        cc = np.zeros((n_nodes,))
-    return np.stack(
-        [deg.astype(np.float32), tri.astype(np.float32), cc.astype(np.float32)], axis=1
+    return _node_triangle_features(
+        edges, n_nodes, method=method, max_wedge_chunk=max_wedge_chunk, device=device
     )

@@ -70,6 +70,8 @@ __all__ = [
     "prepare_oriented",
     "degree_histogram",
     "search_steps",
+    "next_pow2",
+    "iter_wedge_chunks",
     "chunk_count_kernel",
     "chunk_per_node_kernel",
     "chunk_support_kernel",
@@ -285,6 +287,11 @@ def degree_histogram(edges, n_nodes: int | None = None) -> tuple[np.ndarray, int
     return np.bincount(edges[:, 0], minlength=n_nodes).astype(np.int64), n_nodes
 
 
+def next_pow2(x: int) -> int:
+    """Smallest power of two ≥ x (pow2 shape bucketing helper)."""
+    return 1 << max(int(x) - 1, 0).bit_length() if x > 1 else 1
+
+
 # ---------------------------------------------------------------------------
 # workloads: the uniform "query edges vs adjacency" view every backend plans
 # ---------------------------------------------------------------------------
@@ -310,15 +317,37 @@ class Workload(NamedTuple):
     n_steps: int
 
 
-def make_workload(row_offsets, col, out_degree, src_e, dst_e, n_steps: int | None = None) -> Workload:
-    """Build a :class:`Workload` from device tensors (host copies are taken here)."""
-    deg_host = _host(out_degree)
+def _int32_on(x, dev: torch.device) -> torch.Tensor:
+    """``x`` (a tensor or a host array) as an int32 tensor on ``dev``; a
+    tensor already there is returned as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, torch.int32)
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+
+
+def make_workload(
+    row_offsets, col, out_degree, src_e, dst_e, n_steps: int | None = None, *, device=None
+) -> Workload:
+    """Build a :class:`Workload` (host copies for planning are taken here).
+
+    Without ``device`` the five arrays are the run's device tensors.  With
+    it they may be numpy arrays or tensors, and each goes to ``device``
+    once (``dst_e`` is ``col`` → one upload).
+    """
+    deg_host, src_host, dst_host = _host(out_degree), _host(src_e), _host(dst_e)
     if n_steps is None:
         max_deg = int(deg_host.max()) if deg_host.size else 0
         n_steps = max(1, math.ceil(math.log2(max_deg + 1))) if max_deg else 1
+    if device is not None:
+        dev = resolve_device(device)
+        dst_e = None if dst_e is col else _int32_on(dst_e, dev)
+        row_offsets, col, out_degree, src_e = (
+            _int32_on(x, dev) for x in (row_offsets, col, out_degree, src_e)
+        )
+        dst_e = col if dst_e is None else dst_e
     return Workload(
         row_offsets, col, out_degree, src_e, dst_e,
-        _host(src_e), _host(dst_e), deg_host, n_steps,
+        src_host, dst_host, deg_host, n_steps,
     )
 
 
@@ -344,9 +373,7 @@ class _DeviceAdj(NamedTuple):
 
     def put(self, arr) -> torch.Tensor:
         """A host int32 chunk array as a tensor on the adjacency's device."""
-        if isinstance(arr, torch.Tensor):
-            return arr.to(self.device)
-        return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int32)).to(self.device)
+        return _int32_on(arr, self.device)
 
 
 class WedgeChunk(NamedTuple):
@@ -398,7 +425,7 @@ class KernelBackend:
     name: str = "abstract"
     capabilities: frozenset = frozenset()
 
-    def plan(self, work: Workload, budget: int | None) -> WorkPlan:
+    def plan(self, work: Workload, budget: int | None, *, bucket_pow2: bool = False) -> WorkPlan:
         raise NotImplementedError
 
     def count_chunk(self, adj: _DeviceAdj, chunk):
@@ -416,13 +443,15 @@ class WedgeBackend(KernelBackend):
 
     Plans greedy contiguous edge chunks whose wedge fan-out totals obey
     the budget (:func:`plan_edge_chunks`); every chunk is padded to one
-    buffer length.
+    buffer length.  ``bucket_pow2`` rounds that length and the chunk width
+    up to powers of two, as the reference does for its compile cache; here
+    it only keeps the plan's stats and padding equal to the reference's.
     """
 
     name = "wedge_bsearch"
     capabilities = frozenset(CAPABILITIES)
 
-    def plan(self, work: Workload, budget: int | None) -> WorkPlan:
+    def plan(self, work: Workload, budget: int | None, *, bucket_pow2: bool = False) -> WorkPlan:
         src, dst = work.src_host, work.dst_host
         reps = np.where(
             src >= 0, work.deg_host[np.maximum(src, 0)], 0
@@ -432,6 +461,9 @@ class WedgeBackend(KernelBackend):
         peak = max(int(cum[end] - cum[start]) for start, end in bounds)
         peak = max(peak, 1)
         edges_per_chunk = max(end - start for start, end in bounds)
+        if bucket_pow2:
+            peak = next_pow2(peak)
+            edges_per_chunk = next_pow2(edges_per_chunk)
 
         def gen():
             if len(bounds) == 1 and edges_per_chunk == src.shape[0]:
@@ -481,6 +513,8 @@ class PanelBackend(KernelBackend):
     Plans width buckets sliced under ``budget // width`` rows each; chunk
     kernels gather neighbor panels with torch ops and reduce them.
     Degrees beyond the configured ladder extend it by ×4 rungs.
+    ``bucket_pow2`` rounds each slice's rows up to a power of two (the
+    extra rows −1).
     """
 
     name = "panel"
@@ -505,7 +539,7 @@ class PanelBackend(KernelBackend):
             ws.append(ws[-1] * 4)
         return tuple(ws)
 
-    def plan(self, work: Workload, budget: int | None) -> WorkPlan:
+    def plan(self, work: Workload, budget: int | None, *, bucket_pow2: bool = False) -> WorkPlan:
         src, dst, deg = work.src_host, work.dst_host, work.deg_host
         ensure_fits_int32(src.shape[0], "panel query edge count")
         valid = (src >= 0) & (dst >= 0)
@@ -531,6 +565,8 @@ class PanelBackend(KernelBackend):
             for s in range(0, len(idx), per):
                 sl = idx[s : s + per]
                 rows = per if n_slices > 1 else len(sl)
+                if bucket_pow2:
+                    rows = next_pow2(rows)
                 pad = rows - len(sl)
                 if pad:
                     sl = np.concatenate([sl, np.full(pad, -1, np.int32)])
@@ -670,8 +706,12 @@ def run_workload(
     *,
     budget: int | None = None,
     n_out: int | None = None,
+    bucket_pow2: bool = False,
 ):
     """Plan → launch → accumulate one workload through a backend.
+
+    The one loop every caller shares (engine methods, analytics
+    support, truss peel rounds); ``bucket_pow2`` goes to the planner.
 
     Returns ``(value, plan)``: ``int`` for ``"count"``, int64 ``(n_out,)``
     for ``"per_node"``, int64 per-query-edge for ``"support"``, and the
@@ -684,7 +724,7 @@ def run_workload(
         raise ValueError(f"unknown workload kind {kind!r}")
     trc = obs.active()
     t0 = time.perf_counter()
-    plan = backend.plan(work, budget)
+    plan = backend.plan(work, budget, bucket_pow2=bucket_pow2)
     timings = {"plan": time.perf_counter() - t0, "execute": 0.0, "fold": 0.0}
     adj = _DeviceAdj(work.row_offsets, work.col, work.out_degree, work.n_steps)
     obs.counter("engine.workloads").add()
@@ -724,6 +764,22 @@ def run_workload(
         value = acc.cpu().numpy()
     timings["fold"] = time.perf_counter() - t0
     return value, plan._replace(timings=timings)
+
+
+def iter_wedge_chunks(csr: OrientedCSR, max_wedge_chunk: int | None, *, bucket_pow2: bool = False):
+    """Lazily yield −1-padded fixed-shape ``(src, dst, start)`` chunks.
+
+    A view over :meth:`WedgeBackend.plan`.  ``start`` is each chunk's
+    offset into the directed edge list.  A single full chunk is the CSR's
+    own tensors; sliced chunks are host int32 arrays.  Returns
+    ``(generator, n_chunks, peak, total_wedges)`` where ``peak`` is the
+    per-launch buffer (pow2-rounded when bucketing).
+    """
+    plan = WedgeBackend().plan(
+        workload_from_csr(csr), max_wedge_chunk, bucket_pow2=bucket_pow2
+    )
+    gen = ((c.src, c.dst, c.start) for c in plan.chunks)
+    return gen, plan.n_chunks, plan.peak_buffer, plan.total_wedges
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
-"""Port parity: ``python -m repro_torch.launch.count`` against the reference CLI.
+"""Port parity: ``python -m repro_torch.launch.count`` and
+``python -m repro_torch.launch.analyze`` against the reference CLIs.
 
 Karate gives 45 with the same JSON key set as ``python -m
-repro.launch.count``; a ``.tricsr`` cache written by either package loads
-in the other.
+repro.launch.count``; the analyze report equals the reference's apart
+from timings and source paths; a ``.tricsr`` cache written by either
+package loads in the other.
 """
 import json
 import os
@@ -106,3 +108,66 @@ def test_cli_trace_export_validates(tmp_path, monkeypatch, capsys):
     assert len(chunk_spans) == result["stats"]["n_chunks"] > 1
     assert trace["otherData"]["env"]["torch"] == torch.__version__
     assert not obs.enabled()
+
+
+def _analyze_json(proc):
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out.pop("timings_s")
+    out["engine"].pop("timings")
+    ingest = out["source"]["ingest"]
+    for k in [k for k in ingest if k == "cache_path" or k.endswith("_s") or k == "seconds"]:
+        ingest.pop(k)  # paths and timings differ between two runs
+    return out
+
+
+def test_analyze_cli_matches_reference(tmp_path):
+    common = ["--input", KARATE, "--json", "--top-k", "3"]
+    port = run_cli("repro_torch.launch.analyze", *common, "--cache-dir", str(tmp_path / "p"),
+                   "--device", "cpu")
+    ref = run_cli("repro.launch.analyze", *common, "--cache-dir", str(tmp_path / "r"))
+    p, r = _analyze_json(port), _analyze_json(ref)
+    assert p == r
+    assert p["triangles"] == 45 and p["transitivity"] == 135 / 528
+    assert p["truss"]["max_k"] == 5
+    assert p["truss"]["spectrum"] == {"2": 11, "3": 42, "4": 11, "5": 14}
+
+
+def _analyze_main(monkeypatch, tmp_path, *flags):
+    from repro_torch.launch import analyze as cli
+
+    monkeypatch.setattr(sys, "argv", ["analyze", "--input", KARATE,
+                                      "--cache-dir", str(tmp_path), *flags])
+    cli.main()
+
+
+def test_analyze_cli_no_truss(tmp_path, monkeypatch, capsys):
+    _analyze_main(monkeypatch, tmp_path, "--device", "cpu", "--json", "--no-truss",
+                  "--method", "pallas", "--max-wedge-chunk", "64")
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "truss" not in out and "truss" not in out["timings_s"]
+    assert out["triangles"] == 45 and out["support"]["sum"] == 135
+    assert out["engine"]["method"] == out["support"]["method"] == "pallas"
+    assert out["engine"]["n_chunks"] > 1
+
+
+def test_analyze_cli_method_distributed_is_not_ported(tmp_path, monkeypatch, capsys):
+    with pytest.raises(SystemExit) as exc:
+        _analyze_main(monkeypatch, tmp_path, "--device", "cpu", "--method", "distributed")
+    assert exc.value.code != 0
+    assert "not yet ported" in capsys.readouterr().err
+    assert not any(tmp_path.iterdir())  # stopped before any ingest
+
+
+def test_analyze_cli_default_device_is_the_card(tmp_path, monkeypatch, capsys):
+    """``--device cuda`` (the default) without a card exits non-zero with the
+    device error before any ingest; with a card it reports karate's 45."""
+    if torch.cuda.is_available():
+        _analyze_main(monkeypatch, tmp_path, "--json")
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert out["triangles"] == 45 and out["engine"]["method"] == "pallas"
+        return
+    with pytest.raises(SystemExit) as exc:
+        _analyze_main(monkeypatch, tmp_path, "--device", "cuda")
+    assert "--device cuda" in str(exc.value) and "device='cpu'" in str(exc.value)
+    assert not any(tmp_path.iterdir())
