@@ -63,6 +63,22 @@ Phases, each of which fails loudly (non-zero exit, no final line):
 8d. analyze_cli — ``python -m repro_torch.launch.analyze`` on karate on the
              card: 45 triangles, transitivity 135/528, max_k 5 and the
              spectrum {2: 11, 3: 42, 4: 11, 5: 14}, every stage pallas;
+8e. stream — ``IncrementalTriangleCounter`` on kron-21 through pallas at
+             2^26: bootstrapped on the graph without the first 8 batches of
+             65,536 edges of its temporal stream (seed 0), which are then
+             inserted (T21, and per_node equal to phase 6's vector) and
+             deleted (back to the bootstrap's count and per_node); the first
+             insert and delete equal a wedge_bsearch counter restored from
+             the same state; the per-node CSR kernel launches Σ
+             n_probe_launches times over the 16 updates and nothing else
+             runs; probe rows with a list over kShare (1,024) are hit.  Per
+             batch: wall, host merge, each probe's plan / execute / fold,
+             its rows over kShare and widest width;
+8f. serve_graph_cli — ``python -m repro_torch.launch.serve_graph`` on
+             kron-16 on the card: 64 sliding-window batches of 4,096 through
+             pallas verify against the recount; 32 batches with snapshots
+             then ``--resume`` to 64 end on the same triangles and edges;
+             ``--method auto`` probes on wedge_bsearch;
 9. attention_kernel — the flash-attention kernel against its plain version
              (``flash_attention_torch``) and the dense oracle on the card: the
              reference test's five cases, a causal Sq > Skv case (its rows
@@ -86,7 +102,9 @@ Phases, each of which fails loudly (non-zero exit, no final line):
              its plain version and ``scaled_dot_product_attention``.
 
 The ``kernels`` line gives rows 1-3 an ``analytics_launches`` field: their
-launches in phases 8a-8c.  The last two lines are the ``kernels`` JSON line and
+launches in phases 8a-8c; the count and per-node CSR kernels also a
+``stream_launches`` field: the count's in 8e's bootstrap, the per-node's
+over 8e's 16 updates (8f runs in its own processes).  The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -905,27 +923,36 @@ def sync() -> None:
 
 
 class calls_recorded:
-    """Records each ``TriangleCounter.count`` call made inside the block: its
-    seconds (ending in a synchronize) and its ``last_stats``."""
+    """Records each call of the named ``TriangleCounter`` methods (``count``
+    alone by default) made inside the block: its seconds (ending in a
+    synchronize) and its ``last_stats``, in call order."""
+
+    def __init__(self, *names):
+        self.names = names or ("count",)
 
     def __enter__(self):
         from repro_torch.core.engine import TriangleCounter
 
-        self.cls, self.real, self.calls = TriangleCounter, TriangleCounter.count, []
+        self.cls, self.calls = TriangleCounter, []
+        self.real = {name: getattr(TriangleCounter, name) for name in self.names}
 
-        def count(tc, *args, **kwargs):
-            sync()
-            t0 = time.perf_counter()
-            value = self.real(tc, *args, **kwargs)
-            sync()
-            self.calls.append((time.perf_counter() - t0, tc.last_stats))
-            return value
+        def timed(real):
+            def call(tc, *args, **kwargs):
+                sync()
+                t0 = time.perf_counter()
+                value = real(tc, *args, **kwargs)
+                sync()
+                self.calls.append((time.perf_counter() - t0, tc.last_stats))
+                return value
+            return call
 
-        TriangleCounter.count = count
+        for name, real in self.real.items():
+            setattr(TriangleCounter, name, timed(real))
         return self
 
     def __exit__(self, *exc):
-        self.cls.count = self.real
+        for name, real in self.real.items():
+            setattr(self.cls, name, real)
 
 
 class rounds_recorded:
@@ -1225,6 +1252,279 @@ def phase_analyze_cli():
           == "pallas", f"analyze: methods {out['engine']['method']}, {out['truss']['method']}")
     emit({"phase": "analyze_cli", "triangles": out["triangles"], "truss": out["truss"],
           "timings_s": out["timings_s"], "seconds": seconds})
+
+
+# ---------------------------------------------------------------------------
+# phases 8e-8f: incremental counting and the streaming service CLI
+# ---------------------------------------------------------------------------
+
+STREAM_BATCH, STREAM_BATCHES, STREAM_SEED = 65_536, 8, 0
+K_SHARE = 1024  # intersect_csr.cu's kShare: longer lists are searched in global memory
+SERVE_FLAGS = ["--generator", "kronecker", "--scale", "16", "--seed", "1503",
+               "--stream", "sliding_window", "--batch-size", "4096",
+               "--max-wedge-chunk", "4194304", "--json"]
+
+
+class probes_recorded:
+    """Records each probe of ``counter`` inside the block (the three of every
+    update): its wall (ending in a synchronize), the engine's plan / execute /
+    fold of a pallas probe, its rows, the rows whose longer list exceeds
+    ``K_SHARE`` and the widest chunk width launched.  Probes of other
+    counters are not recorded."""
+
+    def __init__(self, counter):
+        self.counter = counter
+        self.probes = []
+
+    def __enter__(self):
+        from repro_torch.core import engine, incremental
+
+        cls = incremental.IncrementalTriangleCounter
+        self.mods = (cls, incremental, engine.PallasBackend)
+        self.real = (cls._probe, incremental.run_workload, engine.PallasBackend.per_node_chunk)
+        real_probe, real_run, real_chunk = self.real
+        rec = self
+        rec.cur = None
+
+        def probe(ctr, pu, pv, adj):
+            if ctr is not rec.counter:
+                return real_probe(ctr, pu, pv, adj)
+            rec.cur = {"rows": int(pu.shape[0]), "adjacency_keys": int(adj.shape[0]),
+                       "plan_s": 0.0, "execute_s": 0.0, "fold_s": 0.0, "n_chunks": 0,
+                       "rows_over_share": 0, "max_list": 0, "widest_width": 0}
+            sync()
+            t0 = time.perf_counter()
+            out = real_probe(ctr, pu, pv, adj)
+            sync()
+            rec.cur["wall_s"] = time.perf_counter() - t0
+            rec.probes.append(rec.cur)
+            rec.cur = None
+            return out
+
+        def run(backend, kind, work, **kwargs):
+            value, plan = real_run(backend, kind, work, **kwargs)
+            if rec.cur is not None:
+                deg = work.deg_host
+                longer = np.maximum(deg[work.src_host], deg[work.dst_host])
+                t = plan.timings
+                rec.cur.update(plan_s=t["plan"], execute_s=t["execute"], fold_s=t["fold"],
+                               n_chunks=plan.n_chunks,
+                               rows_over_share=int((longer > K_SHARE).sum()),
+                               max_list=int(longer.max()) if longer.size else 0)
+            return value, plan
+
+        def chunk(backend, adj, c, n_out):
+            if rec.cur is not None:
+                rec.cur["widest_width"] = max(rec.cur["widest_width"], int(c.width))
+            return real_chunk(backend, adj, c, n_out)
+
+        cls._probe, incremental.run_workload, engine.PallasBackend.per_node_chunk = (
+            probe, run, chunk)
+        return self
+
+    def __exit__(self, *exc):
+        cls, incremental, pallas = self.mods
+        cls._probe, incremental.run_workload, pallas.per_node_chunk = self.real
+
+    def take(self):
+        out, self.probes = self.probes, []
+        return out
+
+
+def held_out_split(edges):
+    """(the undirected edges without the held-out set, the held-out batches,
+    the seconds of each step): the first ``STREAM_BATCHES`` batches of the
+    port's temporal stream (over the undirected pairs, which it keeps as they
+    are, so the batches are those of the edge list's stream)."""
+    from repro_torch.graphs import temporal_edge_stream, undirected_pairs
+
+    t = [time.perf_counter()]
+    und = undirected_pairs(edges)
+    t.append(time.perf_counter())
+    held = []
+    for batch in temporal_edge_stream(und, batch_size=STREAM_BATCH, seed=STREAM_SEED):
+        held.append(batch.insert)
+        if len(held) == STREAM_BATCHES:
+            break
+    t.append(time.perf_counter())
+    keys = und[:, 0] << np.int64(32) | und[:, 1]  # sorted: np.unique's order
+    h = np.concatenate(held)
+    keep = np.ones(und.shape[0], bool)
+    keep[np.searchsorted(keys, h[:, 0] << np.int64(32) | h[:, 1])] = False
+    rest = und[keep]
+    t.append(time.perf_counter())
+    steps = dict(zip(("undirected_pairs_s", "stream_s", "mask_s"), np.diff(t).tolist()))
+    return rest, held, steps
+
+
+def phase_stream(edges, exact_s: float, per_node21):
+    """The incremental counter on kron-21 through pallas at 2^26, on the card:
+    bootstrap on the graph without the held-out batches, insert them (count
+    T21, per-node equal to phase 6's vector), delete them again (back to the
+    bootstrap's state).  The first insert and the first delete equal a
+    wedge_bsearch counter restored from the same state.  Over the 16 updates
+    the per-node CSR kernel launches Σ n_probe_launches times and no other
+    kernel runs.  Returns the stream's launches of the count and per-node
+    CSR kernels."""
+    from repro_torch.core import IncrementalTriangleCounter
+    from repro_torch.kernels.triangle_count import launches, reset_launches
+
+    import resource
+
+    t0 = time.perf_counter()
+    rest, held, split_steps = held_out_split(edges)
+    split_s = time.perf_counter() - t0
+    check(len(held) == STREAM_BATCHES and all(h.shape[0] == STREAM_BATCH for h in held),
+          f"stream: {len(held)} held-out batches of {[h.shape[0] for h in held]}")
+
+    reset_launches()
+    with calls_recorded("count", "per_node") as calls:
+        sync()
+        t0 = time.perf_counter()
+        ctr = IncrementalTriangleCounter(rest, method="pallas", max_wedge_chunk=BUDGETS_21[0])
+        sync()
+        boot_s = time.perf_counter() - t0
+    boot_ln = dict(launches)
+    check(len(calls.calls) == 2, f"stream bootstrap: {len(calls.calls)} engine calls")
+    (count_s, count_st), (per_node_s, _) = calls.calls
+    del rest
+    for kernel in ("intersect_count_csr", "intersect_per_node_csr"):
+        check(boot_ln[kernel] > 0, f"stream bootstrap: {kernel} never launched")
+    check(not any(n for k, n in boot_ln.items()
+                  if k not in ("intersect_count_csr", "intersect_per_node_csr")),
+          f"stream bootstrap: other kernels launched {boot_ln}")
+    count0, per_node0 = ctr.count, ctr.per_node()
+    emit({"phase": "stream_bootstrap", "edges": int(ctr.n_edges), "nodes": int(ctr.n_nodes),
+          "triangles": int(count0), "split_s": split_s, "split_steps": split_steps,
+          "wall_s": boot_s, "count_s": count_s, "count_timings": count_st.timings,
+          "per_node_s": per_node_s, "host_s": boot_s - count_s - per_node_s,
+          "numpy": np.__version__, "launches": boot_ln,
+          "max_rss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20})
+
+    batches = []
+    reset_launches()
+    with probes_recorded(ctr) as rec:
+        for op in ("insert", "delete"):
+            for i, batch in enumerate(held):
+                wedge = None
+                if i == 0:  # the cross-check counter: same state, no recount
+                    wedge = IncrementalTriangleCounter.from_state(
+                        ctr.state_dict(), method="wedge_bsearch",
+                        max_wedge_chunk=BUDGETS_21[0])
+                sync()
+                t0 = time.perf_counter()
+                delta = getattr(ctr, op)(batch)
+                sync()
+                wall = time.perf_counter() - t0
+                st = ctr.last_update_stats
+                probes = rec.take()
+                check(st.op == op and st.n_batch_edges == STREAM_BATCH,
+                      f"stream {op} {i}: {st.op} of {st.n_batch_edges} edges")
+                check(st.probe_method == "pallas", f"stream {op} {i}: probes {st.probe_method}")
+                check(len(probes) == 3, f"stream {op} {i}: {len(probes)} probes recorded")
+                check(sum(p["n_chunks"] for p in probes) == st.n_probe_launches,
+                      f"stream {op} {i}: chunks {[p['n_chunks'] for p in probes]} != "
+                      f"{st.n_probe_launches} launches")
+                cross = None
+                if wedge is not None:
+                    sync()
+                    t1 = time.perf_counter()
+                    w_delta = getattr(wedge, op)(batch)
+                    sync()
+                    cross = {"wedge_s": time.perf_counter() - t1, "delta": int(w_delta)}
+                    check(w_delta == delta, f"stream {op} {i}: wedge_bsearch delta "
+                                            f"{w_delta} != pallas {delta}")
+                    check(np.array_equal(wedge.per_node(), ctr.per_node()),
+                          f"stream {op} {i}: wedge_bsearch per_node differs from pallas")
+                    del wedge
+                rec_b = {"op": op, "batch": i, "wall_s": wall, "delta": int(delta),
+                         "count": int(ctr.count), "n_probe_launches": st.n_probe_launches,
+                         "peak_wedge_buffer": st.peak_wedge_buffer,
+                         "host_merge_s": wall - sum(p["wall_s"] for p in probes),
+                         "probes": probes, "wedge_cross_check": cross}
+                emit({"phase": "stream_batch", **rec_b})
+                batches.append(rec_b)
+            if op == "insert":
+                check(ctr.count == T21, f"stream: {ctr.count} triangles after the inserts "
+                                        f"!= {T21}")
+                check(np.array_equal(ctr.per_node(), per_node21),
+                      "stream: per_node after the inserts differs from phase 6's vector")
+    ln = dict(launches)
+    check(ctr.count == count0, f"stream: {ctr.count} after the deletes != bootstrap {count0}")
+    check(np.array_equal(ctr.per_node(), per_node0),
+          "stream: per_node after the deletes differs from the bootstrap's")
+    n_launches = sum(b["n_probe_launches"] for b in batches)
+    check_launches(ln, "intersect_per_node_csr", n_launches, "stream updates")
+    probes = [p for b in batches for p in b["probes"]]
+    over = sum(p["rows_over_share"] for p in probes)
+    widest = max(p["widest_width"] for p in probes)
+    check(over > 0 and widest > K_SHARE,
+          f"stream: no probe row over the {K_SHARE}-entry share ({over} rows, widest {widest})")
+    walls = np.array([b["wall_s"] for b in batches])
+    emit({"phase": "stream", "graph": "kron-21", "batches": len(batches),
+          "batch_edges": STREAM_BATCH, "update_p50_ms": float(np.percentile(walls, 50)) * 1e3,
+          "update_p99_ms": float(np.percentile(walls, 99)) * 1e3,
+          "edge_updates_per_s": len(batches) * STREAM_BATCH / float(walls.sum()),
+          "batch_vs_exact_recount": float(np.median(walls)) / exact_s,
+          "exact_count_s": exact_s, "rows_over_share": over, "probe_rows": sum(
+              p["rows"] for p in probes), "widest_width": widest,
+          "max_list": max(p["max_list"] for p in probes),
+          "host_merge_s": sum(b["host_merge_s"] for b in batches),
+          "probe_wall_s": sum(p["wall_s"] for p in probes),
+          "probe_plan_s": sum(p["plan_s"] for p in probes),
+          "probe_execute_s": sum(p["execute_s"] for p in probes),
+          "probe_fold_s": sum(p["fold_s"] for p in probes),
+          "launches": ln, "bootstrap_s": boot_s})
+    return {"intersect_count_csr": boot_ln["intersect_count_csr"],
+            "intersect_per_node_csr": ln["intersect_per_node_csr"]}
+
+
+def run_serve_cli(*flags):
+    """``python -m repro_torch.launch.serve_graph`` on the card; its JSON."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve_graph", *flags],
+                       capture_output=True, text=True, env=env, cwd=HERE, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(r.returncode == 0, f"serve_graph {flags} failed ({r.returncode}):\n"
+                             f"{r.stderr[-4000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1]), seconds
+
+
+def phase_serve_graph_cli():
+    """``python -m repro_torch.launch.serve_graph`` on kron-16 on the card:
+    64 sliding-window batches through pallas verify against the recount;
+    32 batches with snapshots, then a resume to 64, end on the uninterrupted
+    run's triangles and edges; ``--method auto`` probes on wedge_bsearch."""
+    def summary(out, seconds):
+        return {k: out[k] for k in ("triangles", "n_edges", "n_batches", "n_inserted",
+                                    "n_deleted", "verified", "probe_method", "update_p50_ms",
+                                    "update_p99_ms", "updates_per_s")} | {
+            "resume": out.get("resume"), "seconds": seconds}
+
+    whole, s_whole = run_serve_cli(*SERVE_FLAGS, "--method", "pallas", "--max-batches", "64")
+    check(whole["verified"] is True and whole["probe_method"] == "pallas",
+          f"serve_graph: verified {whole['verified']}, probes {whole['probe_method']}")
+    check(whole["n_batches"] == 64, f"serve_graph: {whole['n_batches']} batches != 64")
+    with tempfile.TemporaryDirectory() as snap:
+        first, s_first = run_serve_cli(*SERVE_FLAGS, "--method", "pallas", "--max-batches", "32",
+                                       "--snapshot-dir", snap, "--snapshot-every", "16")
+        rest, s_rest = run_serve_cli(*SERVE_FLAGS, "--method", "pallas", "--max-batches", "64",
+                                     "--snapshot-dir", snap, "--resume")
+    check(first["verified"] is True and rest["verified"] is True,
+          f"serve_graph resume: verified {first['verified']}, {rest['verified']}")
+    check(rest["resume"]["skipped_batches"] == 32,
+          f"serve_graph resume: skipped {rest['resume']['skipped_batches']} != 32")
+    check((rest["triangles"], rest["n_edges"]) == (whole["triangles"], whole["n_edges"]),
+          f"serve_graph resume: {(rest['triangles'], rest['n_edges'])} != uninterrupted "
+          f"{(whole['triangles'], whole['n_edges'])}")
+    auto, s_auto = run_serve_cli(*SERVE_FLAGS, "--method", "auto", "--max-batches", "16")
+    check(auto["verified"] is True and auto["probe_method"] == "wedge_bsearch",
+          f"serve_graph auto: verified {auto['verified']}, probes {auto['probe_method']}")
+    emit({"phase": "serve_graph_cli", "graph": "kron-16", "uninterrupted": summary(whole, s_whole),
+          "first_half": summary(first, s_first), "resumed": summary(rest, s_rest),
+          "auto": summary(auto, s_auto)})
 
 
 # ---------------------------------------------------------------------------
@@ -1689,6 +1989,7 @@ def main() -> int:
     main_launches.update(phase_profile(edges, vectors))
     top_nodes, top_edges = top_k_of(vectors["per_node"], vectors["edge_support"],
                                     csr.src.cpu().numpy(), csr.col.cpu().numpy())
+    per_node21 = vectors["per_node"]
     del vectors
     analytics_launches = {k: 0 for k in CSR_KERNELS}
     analytics_launches["intersect_count_csr"] += phase_doulion(edges, exact_s)
@@ -1696,7 +1997,9 @@ def main() -> int:
         analytics_launches[k] += n
     analytics_launches["intersect_support_csr"] += phase_truss()
     phase_analyze_cli()
-    del edges
+    stream_launches = phase_stream(edges, exact_s, per_node21)
+    phase_serve_graph_cli()
+    del edges, per_node21
     chunks = real_chunks(csr, BUDGETS_21[0])
     phase_kernels_real(cmp, ccmp, csr, chunks)
     timing, top = phase_timing(csr, chunks, rate)
@@ -1720,6 +2023,9 @@ def main() -> int:
         })
         check(main_launches[k] > 0, f"{k} was not launched on the main path")
         check(analytics_launches[k] > 0, f"{k} was not launched on the analytics path")
+        if k in stream_launches:
+            kernels[-1]["stream_launches"] = stream_launches[k]
+            check(stream_launches[k] > 0, f"{k} was not launched on the stream path")
     for k in KERNELS:
         t = timing[(k, top)]
         kernels.append({

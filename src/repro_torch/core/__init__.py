@@ -8,9 +8,11 @@ Public API::
     t = tc.count(edge_array)                                     # exact
     t = count_triangles(edge_array, method="pallas", device="cpu")
     est = count_triangles_doulion(edge_array, p=0.25, seed=0)      # DOULION
+    inc = IncrementalTriangleCounter(edge_array, method="pallas")  # streaming
+    inc.insert(new_edges); inc.delete(old_edges)                  # exact deltas
 
-Only the ported names are exported; tuning, incremental and distributed
-counting arrive with later slices.
+Only the ported names are exported; tuning (ROADMAP A3) and distributed
+counting (A6) are not ported yet.
 """
 from .preprocess import (
     OrientedCSR,
@@ -47,6 +49,7 @@ from .engine import (
     run_workload,
 )
 from .approx import count_triangles_doulion
+from .incremental import IncrementalTriangleCounter, UpdateStats
 from .count import (
     WedgePlan,
     make_wedge_plan,
@@ -93,6 +96,8 @@ __all__ = [
     "workload_from_csr",
     "run_workload",
     "count_triangles_doulion",
+    "IncrementalTriangleCounter",
+    "UpdateStats",
     "OrientedCSR",
     "preprocess",
     "preprocess_host_offload",

@@ -207,8 +207,12 @@ def chunk_per_node_kernel(src_e, dst_e, row_offsets, col, out_deg, *, wedge_budg
         src_e, dst_e, row_offsets, col, out_deg, wedge_budget, n_steps
     )
     inc = hit.to(torch.int32)
-    out = torch.zeros((row_offsets.shape[0] - 1,), dtype=torch.int32, device=col.device)
-    for idx in (u, v, w):
+    n_out = row_offsets.shape[0] - 1
+    out = torch.zeros((n_out,), dtype=torch.int32, device=col.device)
+    # a slot that is no hit adds 0; its w may be a sentinel past the rows
+    # (the incremental probe's padded col tail), which the reference's
+    # scatter drops and index_add_ would refuse, so it is clipped
+    for idx in (u, v, w.clamp(0, n_out - 1)):
         out.index_add_(0, idx, inc)
     return out
 

@@ -1,6 +1,7 @@
-"""Graph data pipeline of the port: generators, formats, on-disk ingestion.
+"""Graph data pipeline of the port: generators, formats, edge streams,
+on-disk ingestion.
 
-Sampling, batching and edge streams wait for later slices.
+Sampling and batching wait for ROADMAP A8.
 """
 from .formats import (
     canonicalize_edges,
@@ -21,6 +22,13 @@ from .generators import (
     watts_strogatz,
     erdos_renyi,
     GRAPH_GENERATORS,
+)
+from .streams import (
+    StreamBatch,
+    undirected_pairs,
+    temporal_edge_stream,
+    sliding_window_stream,
+    STREAM_GENERATORS,
 )
 from .io import (
     CSRGraph,
@@ -51,6 +59,11 @@ __all__ = [
     "watts_strogatz",
     "erdos_renyi",
     "GRAPH_GENERATORS",
+    "StreamBatch",
+    "undirected_pairs",
+    "temporal_edge_stream",
+    "sliding_window_stream",
+    "STREAM_GENERATORS",
     "CSRGraph",
     "DATASETS",
     "IngestStats",

@@ -13,6 +13,7 @@ import numpy as np
 __all__ = [
     "canonicalize_edges",
     "validate_node_ids",
+    "sorted_unique",
     "pack_unique_keys",
     "unpack_keys_canonical",
     "edge_array_to_csr",
@@ -52,6 +53,18 @@ def validate_node_ids(edges: np.ndarray, *, context: str = "edge list") -> None:
         )
 
 
+def sorted_unique(keys: np.ndarray) -> np.ndarray:
+    """``np.unique(keys)`` of a 1-D key array, by a sort and a compare of
+    neighbours.  numpy 2.3's ``np.unique`` finds the values with a hash
+    table first, which takes minutes on tens of millions of distinct
+    64-bit keys where the sort takes about a second."""
+    keys = np.sort(np.asarray(keys).reshape(-1))
+    keep = np.empty(keys.shape, bool)
+    keep[:1] = True
+    np.not_equal(keys[1:], keys[:-1], out=keep[1:])
+    return keys[keep]
+
+
 def pack_unique_keys(edges: np.ndarray) -> np.ndarray:
     """Validate ids, drop self loops, and pack pairs into sorted-unique
     64-bit keys (``lo << 32 | hi`` — the paper's thrust::sort trick,
@@ -66,7 +79,7 @@ def pack_unique_keys(edges: np.ndarray) -> np.ndarray:
     edges = edges[edges[:, 0] != edges[:, 1]]  # drop self loops
     lo = np.minimum(edges[:, 0], edges[:, 1])
     hi = np.maximum(edges[:, 0], edges[:, 1])
-    return np.unique(lo << np.int64(32) | hi)
+    return sorted_unique(lo << np.int64(32) | hi)
 
 
 def unpack_keys_canonical(key: np.ndarray, dtype=np.int32) -> np.ndarray:

@@ -1,10 +1,14 @@
-"""Port parity: ``python -m repro_torch.launch.count`` and
-``python -m repro_torch.launch.analyze`` against the reference CLIs.
+"""Port parity: ``python -m repro_torch.launch.count``,
+``python -m repro_torch.launch.analyze`` and
+``python -m repro_torch.launch.serve_graph`` against the reference CLIs.
 
 Karate gives 45 with the same JSON key set as ``python -m
 repro.launch.count``; the analyze report equals the reference's apart
 from timings and source paths; a ``.tricsr`` cache written by either
-package loads in the other.
+package loads in the other; ``serve_graph`` serves karate to the
+reference's counts with the same JSON keys, resumes from its own
+snapshots and from the reference's, and exits before any ingest on a bad
+flag or without a card.
 """
 import json
 import os
@@ -169,5 +173,128 @@ def test_analyze_cli_default_device_is_the_card(tmp_path, monkeypatch, capsys):
         return
     with pytest.raises(SystemExit) as exc:
         _analyze_main(monkeypatch, tmp_path, "--device", "cuda")
+    assert "--device cuda" in str(exc.value) and "device='cpu'" in str(exc.value)
+    assert not any(tmp_path.iterdir())
+
+
+# ---------------------------------------------------------------------------
+# serve_graph: the streaming service CLI
+# ---------------------------------------------------------------------------
+
+
+def _serve_main(module, monkeypatch, capsys, tmp_path, *flags):
+    """Run ``module.main()`` in process; returns its --json object."""
+    monkeypatch.setattr(sys, "argv", ["serve_graph", "--cache-dir", str(tmp_path / "cache"),
+                                      "--json", *flags])
+    module.main()
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_serve_graph_cli_matches_reference(tmp_path):
+    common = ["--dataset", "karate", "--batch-size", "16", "--json"]
+    port = run_cli("repro_torch.launch.serve_graph", *common,
+                   "--cache-dir", str(tmp_path / "p"), "--device", "cpu")
+    ref = run_cli("repro.launch.serve_graph", *common, "--cache-dir", str(tmp_path / "r"))
+    assert port.returncode == 0, port.stderr
+    assert ref.returncode == 0, ref.stderr
+    p = json.loads(port.stdout.strip().splitlines()[-1])
+    r = json.loads(ref.stdout.strip().splitlines()[-1])
+    for k in ("triangles", "n_edges", "n_batches", "n_inserted", "n_deleted", "n_queries",
+              "verified", "probe_method"):
+        assert p[k] == r[k], k
+    assert p["triangles"] == 45 and p["n_edges"] == 78 and p["verified"] is True
+    assert keys(p) == keys(r)
+
+
+@pytest.mark.parametrize("method", ["pallas", "wedge_bsearch"])
+def test_serve_graph_cli_resume_equals_uninterrupted(tmp_path, monkeypatch, capsys, method):
+    from repro_torch.launch import serve_graph as cli
+
+    common = ["--generator", "kronecker", "--scale", "7", "--stream", "sliding_window",
+              "--batch-size", "64", "--window", "300", "--method", method,
+              "--max-wedge-chunk", "512", "--device", "cpu"]
+    whole = _serve_main(cli, monkeypatch, capsys, tmp_path, *common, "--max-batches", "9")
+    snap = str(tmp_path / "snap")
+    first = _serve_main(cli, monkeypatch, capsys, tmp_path, *common, "--max-batches", "5",
+                        "--snapshot-dir", snap, "--snapshot-every", "2")
+    assert first["resume"] == {"skipped_batches": 0, "cursor": 5, "snapshots_written": 3}
+    rest = _serve_main(cli, monkeypatch, capsys, tmp_path, *common, "--max-batches", "9",
+                       "--snapshot-dir", snap, "--resume")
+    assert rest["resume"]["skipped_batches"] == 5 and rest["n_batches"] == 4
+    assert whole["verified"] is rest["verified"] is True
+    assert (rest["triangles"], rest["n_edges"]) == (whole["triangles"], whole["n_edges"])
+    assert rest["probe_method"] == whole["probe_method"] == method
+
+
+def test_serve_graph_cli_resumes_reference_snapshots(tmp_path, monkeypatch, capsys):
+    """Snapshots written by ``repro.launch.serve_graph`` resume in the port's
+    CLI, which ends where the reference's uninterrupted run does."""
+    from repro.launch import serve_graph as ref_cli
+    from repro_torch.launch import serve_graph as cli
+
+    common = ["--generator", "kronecker", "--scale", "6", "--stream", "sliding_window",
+              "--batch-size", "32", "--window", "150", "--max-wedge-chunk", "512"]
+    snap = str(tmp_path / "snap")
+    whole = _serve_main(ref_cli, monkeypatch, capsys, tmp_path, *common, "--max-batches", "8")
+    _serve_main(ref_cli, monkeypatch, capsys, tmp_path, *common, "--max-batches", "3",
+                "--snapshot-dir", snap)
+    rest = _serve_main(cli, monkeypatch, capsys, tmp_path, *common, "--max-batches", "8",
+                       "--snapshot-dir", snap, "--resume", "--device", "cpu",
+                       "--method", "pallas")
+    assert rest["resume"]["skipped_batches"] == 3 and rest["verified"] is True
+    assert (rest["triangles"], rest["n_edges"]) == (whole["triangles"], whole["n_edges"])
+
+
+def test_serve_graph_cli_trace_and_metrics(tmp_path, monkeypatch, capsys):
+    """``--trace`` holds the three probe spans of every update batch, and
+    ``--metrics-out`` one interval record per ``--report-every`` batches."""
+    from repro_torch import obs
+    from repro_torch.launch import serve_graph as cli
+
+    trace_path, metrics = tmp_path / "trace.json", tmp_path / "m.jsonl"
+    out = _serve_main(cli, monkeypatch, capsys, tmp_path, "--dataset", "karate",
+                      "--batch-size", "16", "--device", "cpu", "--method", "pallas",
+                      "--report-every", "2", "--trace", str(trace_path),
+                      "--metrics-out", str(metrics))
+    trace = json.loads(trace_path.read_text())
+    assert obs.validate_chrome_trace(trace) > 0
+    names = [e.get("name") for e in trace["traceEvents"]]
+    for probe in ("probe.without", "probe.with", "probe.delta"):
+        assert names.count(probe) == out["n_batches"] == 5
+    records = [json.loads(line) for line in metrics.read_text().splitlines()]
+    assert [r["kind"] for r in records] == ["interval", "interval", "final"]
+    assert not obs.enabled()
+
+
+@pytest.mark.parametrize("flags", [["--resume"], ["--batch-size", "0"], ["--window", "0"],
+                                   ["--snapshot-every", "0"], ["--report-every", "0"],
+                                   ["--method", "distributed"]])
+def test_serve_graph_cli_bad_flags_fail_before_ingest(tmp_path, monkeypatch, capsys, flags):
+    from repro_torch.launch import serve_graph as cli
+
+    monkeypatch.setattr(sys, "argv", ["serve_graph", "--input", KARATE, "--device", "cpu",
+                                      "--cache-dir", str(tmp_path), *flags])
+    with pytest.raises(SystemExit) as exc:
+        cli.main()
+    assert exc.value.code != 0
+    if flags[-1] == "distributed":
+        assert "not yet ported" in capsys.readouterr().err
+    assert not any(tmp_path.iterdir())  # stopped before any ingest
+
+
+def test_serve_graph_cli_default_device_is_the_card(tmp_path, monkeypatch, capsys):
+    """``--device cuda`` (the default) without a card exits non-zero before
+    any ingest; with a card karate serves and verifies 45."""
+    from repro_torch.launch import serve_graph as cli
+
+    if torch.cuda.is_available():
+        out = _serve_main(cli, monkeypatch, capsys, tmp_path, "--dataset", "karate",
+                          "--batch-size", "16")
+        assert out["triangles"] == 45 and out["verified"] is True
+        return
+    monkeypatch.setattr(sys, "argv", ["serve_graph", "--dataset", "karate",
+                                      "--cache-dir", str(tmp_path)])
+    with pytest.raises(SystemExit) as exc:
+        cli.main()
     assert "--device cuda" in str(exc.value) and "device='cpu'" in str(exc.value)
     assert not any(tmp_path.iterdir())
