@@ -20,7 +20,11 @@ Phases, each of which fails loudly (non-zero exit, no final line):
              longer than the shared-memory share, outputs cut short so the
              index clipping runs) and on the whole of the first and last
              chunk of every kron-21 width bucket, where each also equals the
-             panel kernel route (panel kernel, then the scatter);
+             panel kernel route (panel kernel, then the scatter); under every
+             tuner pick (``candidate_tiles``: rows per block x lanes per row)
+             at widths 16, 64, 1,024 and 4,096, the opt-in above 48 KB of
+             shared memory included; picks the kernel cannot launch raise in
+             the wrapper and are refused by the C entry;
 4. karate  — the CLI (``python -m repro_torch.launch.count``) counts 45;
 5. kron-13 — 1,180,718 triangles through wedge_bsearch, panel and pallas at
              two budgets; Σ per_node and Σ edge_support = 3T through pallas;
@@ -79,6 +83,29 @@ Phases, each of which fails loudly (non-zero exit, no final line):
              pallas verify against the recount; 32 batches with snapshots
              then ``--resume`` to 64 end on the same triangles and edges;
              ``--method auto`` probes on wedge_bsearch;
+8g. tuning — ``AutoTuner`` on kron-21 at 2^26 with a fresh cache file: the
+             cold tuner (tune_on_miss) counts T21 and gives phase 6's per-node
+             and support vectors, tuning each distinct chunk shape once (count
+             launches = chunks + the sweep's, exactly), the file tagged for
+             this card; a warm tuner serves hits only; the count CLI with
+             ``--tile-cache`` reports T21 and hits only; ``REPRO_CHECK=1``
+             counts T21 (its cost recorded) and a planted 2^30 partial raises;
+             per key the pick's µs against the default pick's, the count's
+             execute tuned against untuned (median of 3), the tuning wall;
+8h. graph_service — ``GraphService`` over a ``GraphManager`` with two
+             tenants (soc-livejournal: its offline fallback kron-21, phase 6's
+             graph; com-amazon: kron-16, edge factor 4) under a budget that
+             holds one at a time, and 8g's tile cache: the cold attach of
+             kron-21 (fallback, parse, ingest); the fusion proof (16 queries,
+             one pass, T21); ``run_load`` (4 clients, DEFAULT_MIX) beside a
+             support query, every count T21 and every per-node vector (and
+             the clustering and transitivity from it) and the support vector
+             phase 6's; a truss query on com-amazon equal to a direct peel; a
+             session fed from com-amazon's edges under read load ending on a
+             recount; kron-21 readmitted from its .tricsr; each CSR kernel
+             launching Σ n_chunks of the passes and no panel kernel; then
+             ``python -m repro_torch.serve.loadgen --dataset karate
+             --attest-fusion`` (45, fused);
 9. attention_kernel — the flash-attention kernel against its plain version
              (``flash_attention_torch``) and the dense oracle on the card: the
              reference test's five cases, a causal Sq > Skv case (its rows
@@ -104,7 +131,9 @@ Phases, each of which fails loudly (non-zero exit, no final line):
 The ``kernels`` line gives rows 1-3 an ``analytics_launches`` field: their
 launches in phases 8a-8c; the count and per-node CSR kernels also a
 ``stream_launches`` field: the count's in 8e's bootstrap, the per-node's
-over 8e's 16 updates (8f runs in its own processes).  The last two lines are the ``kernels`` JSON line and
+over 8e's 16 updates (8f runs in its own processes); and rows 1-3
+``tuning_launches`` (8g's tuned counts, per-node and support, the sweep's
+launches included) and ``service_launches`` (8h, the CLI's excepted).  The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -457,6 +486,65 @@ def phase_csr_synthetic(ccmp: CsrCompare):
              m_out=col.shape[0])
     emit({"phase": "csr_synthetic", "cases": done, "checked": dict(ccmp.cases),
           "max_abs_err": dict(ccmp.max_abs_err)})
+
+
+def phase_csr_tiles(ccmp: CsrCompare):
+    """Every tuner pick (``candidate_tiles``) of the CSR kernels' rows per
+    block and lanes per row at widths 16, 64, 1,024 and 4,096: each mode
+    bit-equal to its plain version on a synthetic CSR with lists past the
+    width and, at 4,096, past the shared-memory share.  Picks above 48 KB of
+    shared memory run through the opt-in.  Picks the kernel cannot launch
+    raise in the wrapper, and the C entry refuses them too."""
+    from repro_torch.core.tuning import candidate_tiles
+    from repro_torch.kernels.triangle_count import ref
+    from repro_torch.kernels.triangle_count import triangle_count as tc
+    from repro_torch.kernels.triangle_count._build import load_library
+
+    rng = np.random.default_rng(37)
+    done = []
+    for n, max_deg, rows, width in ((64, 16, 1000, 16), (200, 64, 3000, 64),
+                                    (120, 1500, 700, 1024), (60, 5000, 400, 4096)):
+        ro, col, u, v, e, n_vert = synthetic_csr(rng, n, max_deg, rows, long_rows=min(8, n - 3))
+        m = col.shape[0]
+        want = (ref.intersect_count_csr_ref(ro, col, u, v, width),
+                ref.intersect_per_node_csr_ref(ro, col, u, v, width, n_vert),
+                ref.intersect_support_csr_ref(ro, col, u, v, e, width, m))
+        picks = candidate_tiles(rows, width, width)
+        for cfg in picks:
+            got = (tc.intersect_count_csr_cuda(ro, col, u, v, width, tiles=cfg.tiles),
+                   tc.intersect_per_node_csr_cuda(ro, col, u, v, width, n_vert, tiles=cfg.tiles),
+                   tc.intersect_support_csr_cuda(ro, col, u, v, e, width, m, tiles=cfg.tiles))
+            torch.cuda.synchronize()
+            for k, g, w in zip(CSR_KERNELS, got, want):
+                ccmp._held(k, g, w, f"tiles {cfg.tiles}, synthetic width {width}")
+                ccmp.cases[k] += 1
+        done.append({"width": width, "rows": rows, "max_deg": max_deg,
+                     "picks": [list(c.tiles) for c in picks],
+                     "smem_opt_in": [list(c.tiles) for c in picks
+                                     if tc.csr_smem_bytes(c.block_edges, width) > 49152]})
+    # (48 threads, 2,048 threads, 4 lanes, 256 KB of shared memory at 4,096)
+    bad = ((3, 16), (64, 32), (8, 4), (64, 8))
+    for tiles in bad:
+        try:
+            tc.intersect_count_csr_cuda(ro, col, u, v, width, tiles=tiles)
+            raised = False
+        except ValueError:
+            raised = True
+        check(raised, f"the CSR wrapper launched the inadmissible pick {tiles}")
+    lib = load_library()
+    out = torch.empty(u.shape, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    refused = {}
+    for rows_pb, lanes in bad + ((0, 32), (8, 0)):
+        err = lib.tc_intersect_csr_launch(0, ro.data_ptr(), col.data_ptr(), u.data_ptr(),
+                                          v.data_ptr(), None, u.shape[0], width, rows_pb,
+                                          lanes, out.data_ptr(), u.shape[0], stream)
+        refused[f"{rows_pb}x{lanes}"] = err
+        check(err != 0, f"the CSR kernel's C entry launched the inadmissible pick "
+                        f"({rows_pb}, {lanes})")
+    torch.cuda.synchronize()
+    emit({"phase": "csr_tiles", "cases": done, "checked": dict(ccmp.cases),
+          "max_abs_err": dict(ccmp.max_abs_err), "refused_cuda_errors": refused})
 
 
 def real_chunks(csr, budget):
@@ -1528,6 +1616,417 @@ def phase_serve_graph_cli():
 
 
 # ---------------------------------------------------------------------------
+# phases 8g-8h: the tuner and the multi-tenant graph service
+# ---------------------------------------------------------------------------
+
+TUNE_ITERS = 5           # timed launches per candidate (after one warm-up)
+SERVICE_CLIENTS, SERVICE_REQUESTS = 4, 6
+SMALL_TENANT = "com-amazon"        # offline fallback: kronecker_rmat(16, 4, seed 1503)
+BIG_TENANT = "soc-livejournal"     # offline fallback: kron-21, phase 6's graph
+SESSION_BATCHES, SESSION_BATCH = 4, 4096
+
+
+def run_module(module, *flags):
+    """``python -m module flags`` on the card; (its last JSON line, stderr, seconds)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", module, *flags], capture_output=True, text=True,
+                       env=env, cwd=HERE, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(r.returncode == 0, f"{module} {flags} failed ({r.returncode}):\n{r.stderr[-4000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1]), r.stderr, seconds
+
+
+def phase_tuning(csr, name, per_node21, support21):
+    """The autotuner on kron-21 at 2^26 with a fresh cache file: a cold
+    ``AutoTuner(tune_on_miss=True)`` counts T21 and gives phase 6's per-node
+    and support vectors, tuning each distinct chunk shape once (the count
+    kernel's launches are the chunks' plus the sweep's, exactly); the file
+    carries the port's tag for this card; a warm tuner serves hits only; the
+    count CLI with ``--tile-cache`` reports T21 and hits only; under
+    ``REPRO_CHECK=1`` the count is T21 and a planted 2^30 partial raises.
+    Per key: the pick's and the default pick's µs, in turns; the count's
+    execute tuned against untuned (median of 3); the tuning wall.  Returns
+    (the cache file, the CSR kernels' launches on the tuned path)."""
+    from repro_torch.check.runtime import PARTIAL_HEADROOM, RuntimeCheckError, check_partial
+    from repro_torch.core import AutoTuner, TriangleCounter
+    from repro_torch.core import engine, tuning
+    from repro_torch.kernels.triangle_count import launches, reset_launches
+    from repro_torch.kernels.triangle_count.triangle_count import csr_default_tiles
+
+    tmp = tempfile.mkdtemp(prefix="tiles-")
+    path = os.path.join(tmp, "tiles.json")
+    path_launches = {k: 0 for k in CSR_KERNELS}
+
+    def take_launches():
+        ln = dict(launches)
+        for k in CSR_KERNELS:
+            path_launches[k] += ln[k]
+        return ln
+
+    # 1. cold: the sweep runs inside the count; time it by wrapping autotune_tiles
+    sweeps = []
+    real_autotune = tuning.autotune_tiles
+
+    def timed_autotune(*args, **kwargs):
+        t0 = time.perf_counter()
+        cfg = real_autotune(*args, **kwargs)
+        sweeps.append((args[:3], time.perf_counter() - t0))
+        return cfg
+
+    cold = AutoTuner(path, tune_on_miss=True, iters=TUNE_ITERS)
+    # every shape the engine asks the tuner for: {key: (rows, width)}
+    keys, asked = {}, []
+    real_tiles = cold.tiles
+
+    def recorded_tiles(n_edges, lu, lv):
+        keys[tuning.shape_key(n_edges, lu, lv)] = (n_edges, lu)
+        asked.append(n_edges)
+        return real_tiles(n_edges, lu, lv)
+
+    cold.tiles = recorded_tiles
+    tc = TriangleCounter(method="pallas", max_wedge_chunk=BUDGETS_21[0], tuner=cold)
+    tuning.autotune_tiles = timed_autotune
+    try:
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        got = tc.count(csr)
+        sync()
+        cold_s = time.perf_counter() - t0
+    finally:
+        tuning.autotune_tiles = real_autotune
+    st = tc.last_stats
+    ln = take_launches()
+    check(got == T21, f"tuning: the cold tuned count {got} != {T21}")
+    check(len(asked) == st.n_chunks, f"tuning: {len(asked)} lookups for {st.n_chunks} chunks")
+    check(cold.n_tuned == len(keys) and len(sweeps) == len(keys),
+          f"tuning: {cold.n_tuned} shapes tuned, {len(keys)} distinct keys in the plan")
+    # each sweep times every candidate once to warm up and TUNE_ITERS times
+    sweep_launches = sum(len(tuning.candidate_tiles(r, w, w))
+                         for r, w in keys.values()) * (1 + TUNE_ITERS)
+    check(ln["intersect_count_csr"] == st.n_chunks + sweep_launches,
+          f"tuning: {ln['intersect_count_csr']} count launches != {st.n_chunks} chunks + "
+          f"{sweep_launches} sweep launches")
+    check(not any(n for k, n in ln.items() if k != "intersect_count_csr"),
+          f"tuning: other kernels launched {ln}")
+    payload = json.load(open(path))
+    check(payload["backend"] == f"repro_torch:cuda:{name}",
+          f"tuning: the cache's tag is {payload['backend']!r}")
+    check(set(payload["entries"]) == set(keys), "tuning: the cache's keys are not the plan's")
+    for kind, kernel, want in (("per_node", "intersect_per_node_csr", per_node21),
+                               ("edge_support", "intersect_support_csr", support21)):
+        reset_launches()
+        value = getattr(tc, kind)(csr)
+        check_launches(take_launches(), kernel, tc.last_stats.n_chunks, f"tuned {kind}")
+        check(value.shape == want.shape and np.array_equal(value, want),
+              f"tuning: the tuned {kind} differs from phase 6's vector")
+    check(cold.n_tuned == len(keys), f"tuning: per-node/support tuned again ({cold.n_tuned})")
+
+    # 2. warm: hits only
+    warm = AutoTuner(path, tune_on_miss=False)
+    reset_launches()
+    got = TriangleCounter(method="pallas", max_wedge_chunk=BUDGETS_21[0], tuner=warm).count(csr)
+    ln = take_launches()
+    warm_hits = warm.n_hits
+    check(got == T21 and warm.n_tuned == 0 and warm_hits == st.n_chunks,
+          f"tuning warm: count {got}, {warm_hits} hits, {warm.n_tuned} tuned")
+    check_launches(ln, "intersect_count_csr", st.n_chunks, "tuning warm count")
+
+    # 3. the count CLI on the same cache file
+    out, log, cli_s = run_module("repro_torch.launch.count", "--scale", "21", "--seed", "1503",
+                                 "--max-wedge-chunk", str(BUDGETS_21[0]), "--tile-cache", path,
+                                 "--json")
+    counters = out["counters"]
+    check(out["triangles"] == T21, f"tuning CLI: {out['triangles']} != {T21}")
+    check(counters.get("tiles.cache_hits", 0) == out["stats"]["n_chunks"]
+          and not counters.get("tiles.cache_misses", 0) and not counters.get("tiles.tuned", 0),
+          f"tuning CLI: tile counters {dict((k, v) for k, v in counters.items() if 'tiles' in k)}")
+
+    # 4. the count untuned, tuned and tuned under REPRO_CHECK=1, in turns:
+    # the tuner's and the sanitizer's effect on execute and wall
+    runs = {"untuned": [], "tuned": [], "checked": []}
+    for label in ("untuned", "tuned", "checked", "tuned", "untuned", "checked", "untuned",
+                  "tuned"):
+        t = TriangleCounter(method="pallas", max_wedge_chunk=BUDGETS_21[0],
+                            tuner=None if label == "untuned" else warm)
+        if label == "checked":
+            os.environ["REPRO_CHECK"] = "1"
+        try:
+            sync()
+            t0 = time.perf_counter()
+            value = t.count(csr)
+            sync()
+            wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop("REPRO_CHECK", None)
+        check(value == T21, f"tuning {label}: {value} != {T21}")
+        runs[label].append((wall, t.last_stats.timings["execute"]))
+
+    class Planted(engine.PallasBackend):
+        def count_chunk(self, adj, chunk):
+            part = super().count_chunk(adj, chunk)
+            if part.numel():
+                part[0] = PARTIAL_HEADROOM
+            return part
+
+    os.environ["REPRO_CHECK"] = "1"
+    try:
+        engine.run_workload(Planted(), "count", engine.workload_from_csr(csr),
+                            budget=BUDGETS_21[0])
+        planted = "not raised"
+    except RuntimeCheckError as e:
+        planted = str(e)
+    finally:
+        os.environ.pop("REPRO_CHECK", None)
+    check(planted.startswith("REPRO_CHECK: count partial"), f"planted 2^30 partial: {planted}")
+    try:
+        check_partial(torch.tensor([0, PARTIAL_HEADROOM], dtype=torch.int32, device="cuda"),
+                      kind="count")
+        direct = "not raised"
+    except RuntimeCheckError as e:
+        direct = str(e)
+    check("2^30" in direct, f"check_partial on the card: {direct}")
+
+    # 5. per key: the pick against the default pick, in turns, on the sweep's CSR
+    per_key = []
+    for key, (rows, width) in sorted(keys.items()):
+        pick = tuning.TileConfig(payload["entries"][key]["block_edges"],
+                                 payload["entries"][key]["tlv"])
+        default = tuning.TileConfig(*csr_default_tiles(width))
+        timed = tuning.measure_tiles(rows, width, width, [default, pick, pick, default],
+                                     iters=15, warmup=3)
+        per_key.append({"key": key, "width": width, "pick": list(pick.tiles),
+                        "default": list(default.tiles),
+                        "pick_us": [timed[1].us, timed[2].us],
+                        "default_us": [timed[0].us, timed[3].us],
+                        "sweep_us": payload["entries"][key]["us"],
+                        "sweep_s": next(t for a, t in sweeps
+                                        if tuning.shape_key(*a) == key)})
+    emit({"phase": "tuning", "graph": "kron-21", "budget": BUDGETS_21[0], "keys": len(keys),
+          "n_chunks": st.n_chunks, "cold_count_s": cold_s, "cold_timings": st.timings,
+          "tuning_wall_s": sum(t for _, t in sweeps), "sweep_launches": sweep_launches,
+          "warm_hits": warm_hits, "cache_backend": payload["backend"],
+          "cli": {"triangles": out["triangles"], "seconds": cli_s,
+                  "tile_counters": {k: v for k, v in counters.items() if k.startswith("tiles.")},
+                  "log": [ln_ for ln_ in log.splitlines() if "tile cache" in ln_]},
+          "repro_check": {"planted": planted, "direct": direct},
+          "per_key": per_key,
+          **{f"{label}_wall_s": [w for w, _ in r] for label, r in runs.items()},
+          **{f"{label}_execute_s": [e for _, e in r] for label, r in runs.items()},
+          **{f"{label}_execute_median_s": float(np.median([e for _, e in r]))
+             for label, r in runs.items()},
+          "launches": path_launches})
+    return path, path_launches
+
+
+class workloads_recorded:
+    """Sums ``n_chunks`` of every pallas workload run inside the block, by
+    kind, from any thread: the engine's own, the support runs of the truss
+    peel and the incremental counter's probes (each module's
+    ``run_workload``)."""
+
+    def __enter__(self):
+        import threading
+
+        from repro_torch.analytics import support
+        from repro_torch.core import engine, incremental
+
+        self.mods = (engine, support, incremental)
+        self.reals = tuple(m.run_workload for m in self.mods)
+        self.chunks = {"count": 0, "per_node": 0, "support": 0}
+        self.passes = {"count": 0, "per_node": 0, "support": 0}
+        lock = threading.Lock()
+        real = self.reals[0]
+
+        def run(backend, kind, work, **kwargs):
+            value, plan = real(backend, kind, work, **kwargs)
+            if backend.name == "pallas":
+                with lock:
+                    self.chunks[kind] += plan.n_chunks
+                    self.passes[kind] += 1
+            return value, plan
+
+        for m in self.mods:
+            m.run_workload = run
+        return self
+
+    def __exit__(self, *exc):
+        for m, real in zip(self.mods, self.reals):
+            m.run_workload = real
+
+
+def phase_graph_service(csr, per_node21, support21, tile_cache):
+    """The multi-tenant service on the card: a ``GraphManager`` over a
+    fresh cache directory with two tenants, soc-livejournal (its offline
+    fallback is kron-21, phase 6's graph) and com-amazon (kron-16, edge
+    factor 4), under a memory budget that holds one of them at a time, and
+    phase 8g's tile cache (no tuning).  Cold attach of kron-21 (fallback
+    written, parsed and ingested); the fusion proof (16 queries, one engine
+    pass, T21); ``run_load`` (4 clients, DEFAULT_MIX) beside one support
+    query on kron-21, every count T21 and every per-node vector (and the
+    clustering and transitivity derived from it) phase 6's; a truss query on
+    com-amazon (evicting kron-21) equal to a direct peel; a session fed from
+    com-amazon's edges taking update batches under read load, ending on a
+    recount; kron-21 readmitted from its ``.tricsr``.  Each CSR kernel
+    launches Σ n_chunks of the passes, and no panel kernel runs.  Then the
+    loadgen CLI on karate.  Returns the CSR kernels' launches."""
+    import threading
+
+    from repro_torch.analytics import k_truss_decomposition
+    from repro_torch.analytics.metrics import clustering_from_counts, transitivity_from_counts
+    from repro_torch.core import TriangleCounter
+    from repro_torch.core.engine import degree_histogram
+    from repro_torch.graphs import STREAM_GENERATORS
+    from repro_torch.kernels.triangle_count import launches, reset_launches
+    from repro_torch.serve import DEFAULT_MIX, GraphManager, GraphService, attest_fusion, run_load
+
+    tmp = tempfile.mkdtemp(prefix="graph-service-")
+    n, m2 = csr.n_nodes, 2 * (csr.n_directed_edges)
+    big_bytes = (n + 1) * 8 + m2 * 4  # the .tricsr's int64 row_offsets and int32 col
+    mgr = GraphManager(os.path.join(tmp, "cache"), memory_budget_bytes=big_bytes,
+                       tile_cache_path=tile_cache, tune_on_miss=False)
+    svc = GraphService(mgr, method="pallas", max_wedge_chunk=BUDGETS_21[0], start=False)
+    svc.attach(BIG_TENANT, BIG_TENANT)
+    svc.attach(SMALL_TENANT, SMALL_TENANT)
+    rec = {}
+    reset_launches()
+    try:
+        with workloads_recorded() as work:
+            t0 = time.perf_counter()
+            with mgr.lease(BIG_TENANT) as ent:
+                rec["cold_attach_s"] = time.perf_counter() - t0
+                rec["big_nbytes"] = ent.nbytes
+                ing = ent.meta["ingest"]
+                # the cold attach: the fallback's generation and text write,
+                # then the ingest's parse + canonicalisation, CSR build, cache write
+                rec["big_ingest"] = {k: ing[k] for k in (
+                    "source_kind", "raw_edges", "unique_edges", "spill_runs", "parse_s",
+                    "csr_build_s", "cache_write_s")}
+                rec["big_ingest"]["generate_and_write_s"] = rec["cold_attach_s"] - (
+                    ing["parse_s"] + ing["csr_build_s"] + ing["cache_write_s"])
+                deg, _ = degree_histogram(ent.csr)
+            check(rec["big_nbytes"] == big_bytes,
+                  f"service: kron-21 holds {rec['big_nbytes']} bytes, expected {big_bytes}")
+            check(deg.shape == per_node21.shape, f"service: kron-21 has {deg.shape} nodes")
+            want_cc = clustering_from_counts(per_node21, deg)
+            want_tr = transitivity_from_counts(T21, deg)
+
+            # every static answer is checked as it resolves, in the lane threads
+            bad, seen = [], {}
+            lock = threading.Lock()
+            real_exec = svc._execute_static
+
+            def execute_checked(graph, reqs, engine):
+                real_exec(graph, reqs, engine)
+                for r in reqs:
+                    if not r.ticket.done() or r.ticket.exception(0) is not None:
+                        continue
+                    v = r.ticket.result(0)
+                    ok = True
+                    if graph == BIG_TENANT:
+                        ok = {"count": lambda: v == T21,
+                              "per_node": lambda: np.array_equal(v, per_node21),
+                              "clustering": lambda: np.array_equal(v, want_cc),
+                              "transitivity": lambda: v == want_tr,
+                              "support": lambda: np.array_equal(v, support21)}.get(
+                                  r.kind, lambda: True)()
+                    with lock:
+                        seen[(graph, r.kind)] = seen.get((graph, r.kind), 0) + 1
+                        if not ok:
+                            bad.append((graph, r.kind))
+
+            svc._execute_static = execute_checked
+            fusion = attest_fusion(svc, BIG_TENANT, n=16)
+            check(fusion["fused"] and fusion["consistent"] and fusion["count"] == T21
+                  and fusion["engine_passes"] == 1,
+                  f"service: the fusion proof on kron-21 gave {fusion}")
+
+            support_ticket = svc.submit(BIG_TENANT, "support")
+            load = run_load(svc, BIG_TENANT, clients=SERVICE_CLIENTS,
+                            requests_per_client=SERVICE_REQUESTS, mix=DEFAULT_MIX)
+            support_ticket.result(600.0)
+            rec["support_s"] = support_ticket.wait_s
+            check(load["n_ok"] == SERVICE_CLIENTS * SERVICE_REQUESTS
+                  and not any(load["errors"].values()), f"service: run_load {load['errors']}")
+
+            # the small tenant: truss through the heavy lane (kron-21 evicted)
+            t0 = time.perf_counter()
+            truss = svc.query(SMALL_TENANT, "truss", timeout=600.0)
+            rec["truss_s"] = time.perf_counter() - t0
+            check(BIG_TENANT not in mgr.resident_names(),
+                  f"service: kron-21 still resident beside {SMALL_TENANT}")
+            with mgr.lease(SMALL_TENANT) as ent:
+                small_edges = ent.csr.edge_array()
+                small_n = int(ent.csr.n_nodes)
+                direct = k_truss_decomposition(ent.csr, max_wedge_chunk=BUDGETS_21[0],
+                                               method="pallas")
+            check(np.array_equal(truss.trussness, direct.trussness) and truss.max_k ==
+                  direct.max_k and truss.rounds == direct.rounds,
+                  f"service: truss max_k {truss.max_k} rounds {truss.rounds} != direct "
+                  f"{direct.max_k} {direct.rounds}")
+
+            # a session fed from the small tenant's edges, under read load
+            sess_name = SMALL_TENANT + "-stream"
+            svc.open_session(sess_name, n_nodes=small_n)
+            stream = STREAM_GENERATORS["sliding_window"](
+                small_edges, window=4 * SESSION_BATCH, batch_size=SESSION_BATCH, seed=0)
+            sess_load = run_load(svc, sess_name, clients=2, requests_per_client=8,
+                                 update_stream=stream, max_updates=SESSION_BATCHES)
+            live, live_n = svc.session(sess_name).edges_snapshot()
+            sess_count = svc.session(sess_name).counter.count
+            recount = TriangleCounter(method="pallas", max_wedge_chunk=BUDGETS_21[0]).count(
+                live, live_n)
+            check(sess_load["n_updates"] == SESSION_BATCHES and sess_count == recount,
+                  f"service session: {sess_load['n_updates']} updates, count {sess_count} "
+                  f"!= recount {recount}")
+
+            # kron-21 readmitted from its .tricsr
+            t0 = time.perf_counter()
+            with mgr.lease(BIG_TENANT):
+                rec["warm_attach_s"] = time.perf_counter() - t0
+            again = svc.query(BIG_TENANT, "count", timeout=600.0)
+            check(again == T21, f"service: {again} after readmission")
+            stats = mgr.stats()
+            check(stats["graphs"][BIG_TENANT]["loads"] == 2,
+                  f"service: kron-21 loaded {stats['graphs'][BIG_TENANT]['loads']} times")
+    finally:
+        svc.close()
+    ln = dict(launches)
+    check(not bad, f"service: answers differ from phase 6's: {bad[:8]}")
+    for kind, kernel in (("count", "intersect_count_csr"), ("per_node", "intersect_per_node_csr"),
+                         ("support", "intersect_support_csr")):
+        check(ln[kernel] == work.chunks[kind] and ln[kernel] > 0,
+              f"service: {ln[kernel]} {kernel} launches != Σ n_chunks {work.chunks[kind]}")
+    check(not any(ln[k] for k in KERNELS), f"service: panel kernels launched {ln}")
+    counters = load["counters"]
+    emit({"phase": "graph_service", "tenants": {BIG_TENANT: "kron-21", SMALL_TENANT: "kron-16 ef 4"},
+          "memory_budget_bytes": big_bytes, **rec, "fusion": fusion,
+          "load": {k: load[k] for k in ("clients", "requests_per_client", "n_ok", "elapsed_s",
+                                        "qps", "latency", "errors", "counters")},
+          "session_load": {k: sess_load[k] for k in ("n_ok", "n_updates", "elapsed_s", "qps",
+                                                     "latency")},
+          "session_count": int(sess_count), "truss": {"max_k": int(truss.max_k),
+                                                      "rounds": int(truss.rounds)},
+          "answers_checked": {f"{g}:{k}": n for (g, k), n in sorted(seen.items())},
+          "fused_queries": counters["serve.fused_queries"],
+          "fused_batches": counters["serve.fused_batches"],
+          "engine_passes": counters["serve.engine_passes"], "pallas_passes": work.passes,
+          "tuner": {"hits": mgr.tuner.n_hits, "tuned": mgr.tuner.n_tuned},
+          "residency": stats, "launches": ln})
+
+    out, _, cli_s = run_module("repro_torch.serve.loadgen", "--dataset", "karate",
+                               "--attest-fusion", "--json", "--cache-dir",
+                               os.path.join(tmp, "cli-cache"))
+    check(out["triangles"] == 45 and out["fusion"]["fused"] is True,
+          f"loadgen CLI: {out['triangles']} triangles, fusion {out['fusion']}")
+    emit({"phase": "loadgen_cli", "triangles": out["triangles"], "fusion": out["fusion"],
+          "qps": out["load"]["qps"], "seconds": cli_s})
+    return {k: ln[k] for k in CSR_KERNELS}
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the flash-attention kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -1974,6 +2473,7 @@ def main() -> int:
     cmp, ccmp = Compare(), CsrCompare()
     phase_kernels_synthetic(cmp)
     phase_csr_synthetic(ccmp)
+    phase_csr_tiles(ccmp)
     phase_karate()
     phase_kron13()
 
@@ -1989,7 +2489,7 @@ def main() -> int:
     main_launches.update(phase_profile(edges, vectors))
     top_nodes, top_edges = top_k_of(vectors["per_node"], vectors["edge_support"],
                                     csr.src.cpu().numpy(), csr.col.cpu().numpy())
-    per_node21 = vectors["per_node"]
+    per_node21, support21 = vectors["per_node"], vectors["edge_support"]
     del vectors
     analytics_launches = {k: 0 for k in CSR_KERNELS}
     analytics_launches["intersect_count_csr"] += phase_doulion(edges, exact_s)
@@ -1999,7 +2499,9 @@ def main() -> int:
     phase_analyze_cli()
     stream_launches = phase_stream(edges, exact_s, per_node21)
     phase_serve_graph_cli()
-    del edges, per_node21
+    tile_cache, tuning_launches = phase_tuning(csr, name, per_node21, support21)
+    service_launches = phase_graph_service(csr, per_node21, support21, tile_cache)
+    del edges, per_node21, support21
     chunks = real_chunks(csr, BUDGETS_21[0])
     phase_kernels_real(cmp, ccmp, csr, chunks)
     timing, top = phase_timing(csr, chunks, rate)
@@ -2026,6 +2528,10 @@ def main() -> int:
         if k in stream_launches:
             kernels[-1]["stream_launches"] = stream_launches[k]
             check(stream_launches[k] > 0, f"{k} was not launched on the stream path")
+        kernels[-1]["tuning_launches"] = tuning_launches[k]
+        kernels[-1]["service_launches"] = service_launches[k]
+        check(tuning_launches[k] > 0, f"{k} was not launched on the tuned path")
+        check(service_launches[k] > 0, f"{k} was not launched by the graph service")
     for k in KERNELS:
         t = timing[(k, top)]
         kernels.append({

@@ -75,13 +75,11 @@ def support_on_arrays(
     ``src``/``col`` may carry a −1-padded tail (padded slots get zero
     support).  The arrays may be numpy arrays or tensors; each goes to the
     run's ``device`` (``None``: the card) once.  ``method="auto"``
-    resolves against ``out_degree`` for that device.  ``tuner``, ``mesh``
-    and ``shorter_side`` are not ported yet and raise.
+    resolves against ``out_degree`` for that device.  ``tuner`` (an
+    :class:`repro_torch.core.tuning.AutoTuner`) steers the support CSR
+    kernel's knobs; ``mesh`` and ``shorter_side`` are not ported yet and
+    raise.
     """
-    if tuner is not None:
-        raise NotImplementedError(
-            "support_on_arrays(tuner=) " + NOT_PORTED.format(item="core/tuning.py")
-        )
     if mesh is not None or shorter_side:
         raise NotImplementedError("support_on_arrays(mesh=/shorter_side=) "
                                   + NOT_PORTED.format(item="Distributed"))
@@ -89,7 +87,7 @@ def support_on_arrays(
     if _host(src).shape[0] == 0:
         return SupportRun(np.zeros((0,), np.int64), 0, 0, 0, "wedge_bsearch", None)
     resolved = resolve_method(method, out_degree, backend=dev.type)
-    backend, executed, reason = resolve_backend(resolved, "support")
+    backend, executed, reason = resolve_backend(resolved, "support", tuner=tuner)
     work = make_workload(row_offsets, col, out_degree, src, col, n_steps=n_steps, device=dev)
     sup, plan = run_workload(
         backend, "support", work, budget=max_wedge_chunk, bucket_pow2=bucket_pow2

@@ -10,9 +10,11 @@ Public API::
     est = count_triangles_doulion(edge_array, p=0.25, seed=0)      # DOULION
     inc = IncrementalTriangleCounter(edge_array, method="pallas")  # streaming
     inc.insert(new_edges); inc.delete(old_edges)                  # exact deltas
+    tuner = AutoTuner("tiles.json", tune_on_miss=True)             # §III-D5 sweep
+    TriangleCounter(method="pallas", tuner=tuner).count(edge_array)
 
-Only the ported names are exported; tuning (ROADMAP A3) and distributed
-counting (A6) are not ported yet.
+Only the ported names are exported; distributed counting (ROADMAP A6) is
+not ported yet.
 """
 from .preprocess import (
     OrientedCSR,
@@ -49,6 +51,7 @@ from .engine import (
     run_workload,
 )
 from .approx import count_triangles_doulion
+from .tuning import AutoTuner, TileCache
 from .incremental import IncrementalTriangleCounter, UpdateStats
 from .count import (
     WedgePlan,
@@ -96,6 +99,8 @@ __all__ = [
     "workload_from_csr",
     "run_workload",
     "count_triangles_doulion",
+    "AutoTuner",
+    "TileCache",
     "IncrementalTriangleCounter",
     "UpdateStats",
     "OrientedCSR",

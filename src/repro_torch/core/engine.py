@@ -19,7 +19,13 @@ with a batched binary search in torch ops; :class:`PanelBackend`
 cube; :class:`PallasBackend` (``"pallas"``) is the same plan driving the
 hand-written CUDA kernels of :mod:`repro_torch.kernels.triangle_count`
 (the method string is the reference's, so one ``method=`` drives the same
-schedule in both packages).  ``"distributed"`` is not ported yet.
+schedule in both packages), each chunk's kernel knobs steered by an
+optional :class:`repro_torch.core.tuning.AutoTuner` (``tuner=``).
+``"distributed"`` (and ``mesh=``) is not ported yet.
+
+With ``REPRO_CHECK=1`` in the environment, :func:`run_workload` holds every
+chunk's int32 partial to the device-accumulator contract
+(:func:`repro_torch.check.runtime.check_partial`) before it is folded.
 
 Device: the counter runs on ``cuda`` unless it is given ``device="cpu"``,
 and raises when no card is visible.  All chunk partials stay on the
@@ -40,6 +46,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch._device import resolve_device
+from repro_torch.check import runtime as check_runtime
 from repro_torch.distributed.compression import ensure_fits_int32
 from repro_torch.kernels.triangle_count import ops as tc_ops
 from repro_torch.kernels.triangle_count.ref import panel_scatter_per_node, panel_scatter_support
@@ -524,8 +531,9 @@ class PanelBackend(KernelBackend):
     name = "panel"
     capabilities = frozenset(CAPABILITIES)
 
-    def __init__(self, widths=DEFAULT_WIDTHS):
+    def __init__(self, widths=DEFAULT_WIDTHS, tuner=None):
         self.widths = tuple(widths)
+        self.tuner = tuner
 
     # intersect flavors — PallasBackend overrides with the kernel family
     def intersect_count(self, a, b):
@@ -615,25 +623,35 @@ class PallasBackend(PanelBackend):
     per-node and support kernels add their hits into the chunk's int32
     partial themselves, with no scatter after them.  The ``intersect_*``
     panel methods (``ops.intersect_*``) serve :class:`PanelBackend`'s
-    gather route when a subclass takes its chunk methods.
+    gather route when a subclass takes its chunk methods.  With a
+    ``tuner`` each chunk's rows per block and lanes per row come from its
+    cache (``tuner.tiles(rows, width, width)``); without one, or on a
+    miss it does not tune, the kernel's default pick runs.
     """
 
     name = "pallas"
 
+    def _tiles(self, chunk):
+        if self.tuner is None:
+            return None
+        return self.tuner.tiles(len(chunk.u), chunk.width, chunk.width)
+
     def count_chunk(self, adj, chunk):
         return tc_ops.intersect_count_csr(
-            adj.row_offsets, adj.col, adj.put(chunk.u), adj.put(chunk.v), chunk.width
+            adj.row_offsets, adj.col, adj.put(chunk.u), adj.put(chunk.v), chunk.width,
+            self._tiles(chunk),
         )
 
     def per_node_chunk(self, adj, chunk, n_out):
         return tc_ops.intersect_per_node_csr(
-            adj.row_offsets, adj.col, adj.put(chunk.u), adj.put(chunk.v), chunk.width, n_out
+            adj.row_offsets, adj.col, adj.put(chunk.u), adj.put(chunk.v), chunk.width, n_out,
+            self._tiles(chunk),
         )
 
     def support_chunk(self, adj, chunk, m_out):
         return tc_ops.intersect_support_csr(
             adj.row_offsets, adj.col, adj.put(chunk.u), adj.put(chunk.v),
-            adj.put(chunk.edge_idx), chunk.width, m_out,
+            adj.put(chunk.edge_idx), chunk.width, m_out, self._tiles(chunk),
         )
 
     def intersect_count(self, a, b):
@@ -652,19 +670,21 @@ _BACKEND_FACTORIES: dict[str, object] = {}
 def register_backend(name: str, factory) -> None:
     """Register a backend factory under ``name``.
 
-    The factory is called as ``factory(widths=...)`` and must return a
-    :class:`KernelBackend`; accept ``**_`` for unused knobs.  A
+    The factory is called as ``factory(widths=..., tuner=...)`` and must
+    return a :class:`KernelBackend`; accept ``**_`` for unused knobs.  A
     registered name is directly usable as ``TriangleCounter(method=name)``.
     """
     _BACKEND_FACTORIES[name] = factory
 
 
 register_backend("wedge_bsearch", lambda **_: WedgeBackend())
-register_backend("panel", lambda widths=DEFAULT_WIDTHS, **_: PanelBackend(widths=widths))
-register_backend("pallas", lambda widths=DEFAULT_WIDTHS, **_: PallasBackend(widths=widths))
+register_backend("panel", lambda widths=DEFAULT_WIDTHS, tuner=None, **_: PanelBackend(
+    widths=widths, tuner=tuner))
+register_backend("pallas", lambda widths=DEFAULT_WIDTHS, tuner=None, **_: PallasBackend(
+    widths=widths, tuner=tuner))
 
 
-def make_backend(name: str, *, widths=DEFAULT_WIDTHS) -> KernelBackend:
+def make_backend(name: str, *, widths=DEFAULT_WIDTHS, tuner=None) -> KernelBackend:
     """Instantiate the backend registered under ``name``."""
     if name == "distributed":
         raise NotImplementedError("the 'distributed' backend " + NOT_PORTED.format(item="Distributed"))
@@ -675,13 +695,13 @@ def make_backend(name: str, *, widths=DEFAULT_WIDTHS) -> KernelBackend:
             f"unknown kernel backend {name!r}; registered: "
             f"{sorted(_BACKEND_FACTORIES)}"
         ) from None
-    return factory(widths=widths)
+    return factory(widths=widths, tuner=tuner)
 
 
 _warned_fallbacks: set = set()
 
 
-def resolve_backend(method: str, kind: str, *, widths=DEFAULT_WIDTHS):
+def resolve_backend(method: str, kind: str, *, widths=DEFAULT_WIDTHS, tuner=None):
     """Pick the backend for (schedule, workload) by capability.
 
     Returns ``(backend, executed_name, fallback_reason)``.  When the
@@ -691,7 +711,7 @@ def resolve_backend(method: str, kind: str, *, widths=DEFAULT_WIDTHS):
     """
     if kind not in CAPABILITIES:
         raise ValueError(f"unknown workload kind {kind!r}; expected one of {CAPABILITIES}")
-    backend = make_backend(method, widths=widths)
+    backend = make_backend(method, widths=widths, tuner=tuner)
     if kind in backend.capabilities:
         return backend, method, None
     reason = f"backend {method!r} has no {kind!r} kernel; fell back to 'wedge_bsearch'"
@@ -700,7 +720,7 @@ def resolve_backend(method: str, kind: str, *, widths=DEFAULT_WIDTHS):
     if key not in _warned_fallbacks:
         _warned_fallbacks.add(key)
         warnings.warn(reason, RuntimeWarning, stacklevel=3)
-    return make_backend("wedge_bsearch", widths=widths), "wedge_bsearch", reason
+    return make_backend("wedge_bsearch", widths=widths, tuner=tuner), "wedge_bsearch", reason
 
 
 def run_workload(
@@ -723,6 +743,9 @@ def run_workload(
     the device until one fold after the last launch, so launches are not
     serialized by host reads.  Under an active :mod:`repro_torch.obs`
     tracer each chunk launch gets a span that syncs before it closes.
+    With ``REPRO_CHECK=1`` each chunk's partial goes through
+    :func:`repro_torch.check.runtime.check_partial` before the fold (one
+    read of its min and max per chunk).
     """
     if kind not in CAPABILITIES:
         raise ValueError(f"unknown workload kind {kind!r}")
@@ -731,6 +754,7 @@ def run_workload(
     plan = backend.plan(work, budget, bucket_pow2=bucket_pow2)
     timings = {"plan": time.perf_counter() - t0, "execute": 0.0, "fold": 0.0}
     adj = _DeviceAdj(work.row_offsets, work.col, work.out_degree, work.n_steps)
+    san = check_runtime if check_runtime.enabled() else None  # read per call: tests toggle it
     obs.counter("engine.workloads").add()
     obs.counter("engine.wedges_planned").add(plan.total_wedges)
     obs.counter("engine.chunks_launched").add(plan.n_chunks)
@@ -750,6 +774,8 @@ def run_workload(
         partials = [
             launch(backend.count_chunk, chunk, i) for i, chunk in enumerate(plan.chunks)
         ]
+        if san is not None:
+            san.check_partials(partials, kind="count")
         timings["execute"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         value = accumulate_partials(partials)
@@ -762,7 +788,10 @@ def run_workload(
             fn = backend.support_chunk
         acc = torch.zeros((n,), dtype=torch.int64, device=adj.device)
         for i, chunk in enumerate(plan.chunks):
-            acc += launch(fn, chunk, i, n)
+            part = launch(fn, chunk, i, n)
+            if san is not None:
+                san.check_partial(part, kind=kind, context=f"chunk {i}")
+            acc += part
         timings["execute"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         value = acc.cpu().numpy()
@@ -848,6 +877,12 @@ class TriangleCounter:
         full-size launch.
     widths:
         Panel bucket boundaries for the panel/pallas schedules.
+    tuner:
+        Optional :class:`repro_torch.core.tuning.AutoTuner` steering the
+        CSR kernels' rows per block and lanes per row from its per-shape
+        grid-search cache.
+    mesh:
+        Not ported yet (queue A: Distributed); raises when given.
     device:
         ``None`` or ``"cuda"`` (the default: raises without a card) or
         ``"cpu"``.
@@ -861,8 +896,12 @@ class TriangleCounter:
         max_wedge_chunk: int | None = None,
         widths: tuple[int, ...] = DEFAULT_WIDTHS,
         *,
+        tuner=None,
+        mesh=None,
         device=None,
     ):
+        if mesh is not None:
+            raise NotImplementedError("TriangleCounter(mesh=) " + NOT_PORTED.format(item="Distributed"))
         if method == "distributed":
             raise NotImplementedError("method='distributed' " + NOT_PORTED.format(item="Distributed"))
         if method not in METHODS and method not in _BACKEND_FACTORIES:
@@ -876,6 +915,7 @@ class TriangleCounter:
         self.method = method
         self.max_wedge_chunk = max_wedge_chunk
         self.widths = tuple(widths)
+        self.tuner = tuner
         self.last_stats: EngineStats | None = None
 
     # -- public API ---------------------------------------------------------
@@ -969,7 +1009,9 @@ class TriangleCounter:
 
     def _run(self, csr: OrientedCSR, kind: str, resolved: str, prep_s: float = 0.0):
         """Dispatch one workload through the capability-resolved backend."""
-        backend, executed, reason = resolve_backend(resolved, kind, widths=self.widths)
+        backend, executed, reason = resolve_backend(
+            resolved, kind, widths=self.widths, tuner=self.tuner
+        )
         value, plan = run_workload(
             backend, kind, workload_from_csr(csr),
             budget=self.max_wedge_chunk,

@@ -13,6 +13,10 @@ module runs the *same* key pipeline chunk-by-chunk:
    globally sorted, globally deduplicated key array, which unpacks into a
    canonical edge array **bit-identical** to the in-memory path.
 
+Every dedup is :func:`repro_torch.graphs.formats.sorted_unique` (a sort and
+a neighbour compare), not ``np.unique``, which numpy 2.3 runs through a
+hash table that takes minutes at kron-21's tens of millions of keys.
+
 Peak memory is O(``max_chunk_edges``) during the run phase and
 O(output + merge buffers) during the merge — the raw edge multiset never
 has to fit, which is the property that matters for SNAP-scale inputs
@@ -28,7 +32,7 @@ from typing import Iterable, Iterator
 
 import numpy as np
 
-from ..formats import pack_unique_keys, unpack_keys_canonical
+from ..formats import pack_unique_keys, sorted_unique, unpack_keys_canonical
 
 __all__ = ["canonicalize_edges_external", "ExternalSortStats", "merge_sorted_runs"]
 
@@ -92,7 +96,7 @@ def merge_sorted_runs(
     while readers:
         cut = min(np.int64(r.block[-1]) for r in readers)
         parts = [r.take_upto(cut) for r in readers]
-        merged = np.unique(np.concatenate(parts))
+        merged = sorted_unique(np.concatenate(parts))
         if merged.size:
             yield merged
         readers = [r for r in readers if r.block.size]
@@ -134,7 +138,7 @@ def canonicalize_edges_external(
         nonlocal buffer, buffered
         if not buffered:
             return
-        keys = np.unique(np.concatenate(buffer)) if len(buffer) > 1 else buffer[0]
+        keys = sorted_unique(np.concatenate(buffer)) if len(buffer) > 1 else buffer[0]
         path = os.path.join(spill_dir, f"run-{len(run_paths):05d}.u64")
         keys.tofile(path)
         run_paths.append(path)
@@ -160,7 +164,7 @@ def canonicalize_edges_external(
             if not buffer:
                 key = np.empty((0,), np.int64)
             else:
-                key = np.unique(np.concatenate(buffer)) if len(buffer) > 1 else buffer[0]
+                key = sorted_unique(np.concatenate(buffer)) if len(buffer) > 1 else buffer[0]
             stats.unique_edges = key.size
             return unpack_keys_canonical(key, dtype)
 

@@ -14,6 +14,8 @@ CPU path is :mod:`.ops`, which sends CPU tensors to the plain version
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 __all__ = [
@@ -24,8 +26,10 @@ __all__ = [
     "HEAD_DIMS",
 ]
 
-# raised by one at each launch of the kernel
+# raised by one at each launch of the kernel, under _launches_lock (callers
+# on several threads launch concurrently)
 launches = {"flash_attention": 0}
+_launches_lock = threading.Lock()
 
 # (block_q, block_k) when the caller gives none.  bf16: block_q is 64 query
 # rows per consumer warpgroup (64 or 128), block_k the keys of one K/V tile
@@ -42,8 +46,9 @@ _MAX_GRID_Y = 65535
 
 def reset_launches() -> None:
     """Set the kernel's launch count to 0."""
-    for k in launches:
-        launches[k] = 0
+    with _launches_lock:
+        for k in launches:
+            launches[k] = 0
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -139,5 +144,6 @@ def flash_attention_cuda(
         )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError_t {err}")
-    launches["flash_attention"] += 1
+    with _launches_lock:
+        launches["flash_attention"] += 1
     return out

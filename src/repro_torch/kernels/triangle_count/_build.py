@@ -30,8 +30,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.tc_intersect_csr_launch
     fn.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return lib

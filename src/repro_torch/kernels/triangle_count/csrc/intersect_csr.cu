@@ -33,9 +33,16 @@
 // share of shared memory with coalesced loads, and binary-searches each
 // entry of the shorter list there: min(du, dv) * log2 max(du, dv)
 // shared-memory compares.  A longer list than the share (kShare entries) is
-// searched in global memory by the same code.  G follows the bucket width
-// (8 lanes for width 16, 16 for 64, a warp above), so narrow rows do not
-// leave most of a warp idle.  A hit at slot i of the shorter list and slot
+// searched in global memory by the same code.  By default G follows the
+// bucket width (8 lanes for width 16, 16 for 64, a warp above), so narrow
+// rows do not leave most of a warp idle, and a block holds 256 threads.  A
+// tuner may instead set both knobs at run time (core/tuning.py): rows per
+// block and lanes per row G in {8, 16, 32}, with rows * G a multiple of 32
+// up to 1,024 threads (the group reduction is a full-mask warp shuffle, so
+// every warp must be whole) and rows * min(width, kShare) * 4 bytes of
+// shared memory under kMaxSmem; above 48 KB the launch opts in.  A pick
+// outside those limits is refused (cudaErrorInvalidValue), never replaced.
+// The result does not depend on the knobs.  A hit at slot i of the shorter list and slot
 // p of the longer one knows both slots, so the support scatter needs no
 // second search.  The count is a shuffle reduction inside the group; the
 // per-node and support adds are int32 atomics, whose sums are the same in
@@ -56,8 +63,11 @@ constexpr int MODE_COUNT = 0;
 constexpr int MODE_PER_NODE = 1;
 constexpr int MODE_SUPPORT = 2;
 
-constexpr int kThreads = 256;
-constexpr int kShare = 1024;  // ints of shared memory per row group, at most
+constexpr int kThreads = 256;       // the default pick's block
+constexpr int kMaxThreads = 1024;   // a tuned pick's block, at most
+constexpr int kShare = 1024;        // ints of shared memory per row group, at most
+constexpr size_t kMaxSmem = 232448;     // 227 KB: a block's dynamic shared memory, at most
+constexpr size_t kDefaultSmem = 49152;  // 48 KB: beyond it a launch must opt in
 
 // Lower bound of x in row[0:n).
 __device__ __forceinline__ int lower_bound(const int* row, int n, int x) {
@@ -96,16 +106,17 @@ __device__ __forceinline__ int hits_in(const int* longer, int n, int lb,
   return hits;
 }
 
+// One block of blockDim.x / G row groups (blockDim.x a multiple of 32).
 template <int G, int MODE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 intersect_csr_kernel(const int* __restrict__ row_offsets, const int* __restrict__ col,
                      const int* __restrict__ u, const int* __restrict__ v,
                      const int* __restrict__ edge_idx, int64_t n_rows, int width, int share,
                      int* __restrict__ out, long long n_out) {
   extern __shared__ int smem[];
-  constexpr int kGroups = kThreads / G;
+  const int groups = blockDim.x / G;
   const int group = threadIdx.x / G, lane = threadIdx.x % G;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kGroups + group;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * groups + group;
   int* mine = smem + group * share;
 
   int su = -1, sv = -1;
@@ -147,24 +158,51 @@ intersect_csr_kernel(const int* __restrict__ row_offsets, const int* __restrict_
 
 template <int G, int MODE>
 cudaError_t launch(const int* ro, const int* col, const int* u, const int* v, const int* edge_idx,
-                   int64_t n_rows, int width, int* out, long long n_out, cudaStream_t stream) {
-  constexpr int kGroups = kThreads / G;
+                   int64_t n_rows, int width, int rows_per_block, int* out, long long n_out,
+                   cudaStream_t stream) {
+  const int threads = rows_per_block * G;
+  if (rows_per_block < 1 || threads > kMaxThreads || threads % 32 != 0)
+    return cudaErrorInvalidValue;
   const int share = min(width, kShare);
-  const int64_t n_blocks = (n_rows + kGroups - 1) / kGroups;
+  const int64_t n_blocks = (n_rows + rows_per_block - 1) / rows_per_block;
   if (n_blocks > 2147483647LL) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(int) * kGroups * share;  // <= 32 KB: no opt-in needed
-  intersect_csr_kernel<G, MODE><<<static_cast<unsigned int>(n_blocks), kThreads, smem, stream>>>(
+  const size_t smem = sizeof(int) * static_cast<size_t>(rows_per_block) * share;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > kDefaultSmem) {
+    // always the ceiling, never this launch's size: a smaller setting from
+    // another thread's launch must not undercut a larger one in flight
+    const cudaError_t err = cudaFuncSetAttribute(
+        intersect_csr_kernel<G, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kMaxSmem));
+    if (err != cudaSuccess) return err;
+  }
+  intersect_csr_kernel<G, MODE><<<static_cast<unsigned int>(n_blocks), threads, smem, stream>>>(
       ro, col, u, v, edge_idx, n_rows, width, share, out, n_out);
   return cudaGetLastError();
 }
 
+// lanes = 0 (and rows_per_block = 0): the default pick, G by width and a
+// 256-thread block.
 template <int MODE>
 cudaError_t launch_mode(const int* ro, const int* col, const int* u, const int* v,
-                        const int* edge_idx, int64_t n_rows, int width, int* out,
-                        long long n_out, cudaStream_t s) {
-  if (width <= 16) return launch<8, MODE>(ro, col, u, v, edge_idx, n_rows, width, out, n_out, s);
-  if (width <= 64) return launch<16, MODE>(ro, col, u, v, edge_idx, n_rows, width, out, n_out, s);
-  return launch<32, MODE>(ro, col, u, v, edge_idx, n_rows, width, out, n_out, s);
+                        const int* edge_idx, int64_t n_rows, int width, int rows_per_block,
+                        int lanes, int* out, long long n_out, cudaStream_t s) {
+  if (lanes == 0 && rows_per_block == 0) {
+    lanes = width <= 16 ? 8 : (width <= 64 ? 16 : 32);
+    rows_per_block = kThreads / lanes;
+  }
+  switch (lanes) {
+    case 8:
+      return launch<8, MODE>(ro, col, u, v, edge_idx, n_rows, width, rows_per_block, out, n_out, s);
+    case 16:
+      return launch<16, MODE>(ro, col, u, v, edge_idx, n_rows, width, rows_per_block, out, n_out,
+                              s);
+    case 32:
+      return launch<32, MODE>(ro, col, u, v, edge_idx, n_rows, width, rows_per_block, out, n_out,
+                              s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -173,14 +211,16 @@ cudaError_t launch_mode(const int* ro, const int* col, const int* u, const int* 
 // (support).  row_offsets (n + 1,), col, u, v (B,), edge_idx (B,; support
 // only, else null) and out are int32 device arrays; out holds B counts
 // (count) or n_out >= 1 slots, zeroed by the caller (per-node, support).
-// width >= 1 is the bucket width.  Returns the cudaError_t of the launch
+// width >= 1 is the bucket width.  rows_per_block and lanes are the tuner's
+// knobs, both 0 for the default pick.  Returns the cudaError_t of the launch
 // (0 on success).
 extern "C" int tc_intersect_csr_launch(int mode, const void* row_offsets, const void* col,
                                        const void* u, const void* v, const void* edge_idx,
-                                       long long n_rows, int width, void* out,
-                                       long long n_out, void* stream) {
+                                       long long n_rows, int width, int rows_per_block,
+                                       int lanes, void* out, long long n_out, void* stream) {
   if (n_rows <= 0) return 0;
   if (width < 1) return cudaErrorInvalidValue;
+  if ((lanes == 0) != (rows_per_block == 0)) return cudaErrorInvalidValue;
   if (mode != MODE_COUNT && n_out < 1) return cudaErrorInvalidValue;
   if (mode == MODE_SUPPORT && edge_idx == nullptr) return cudaErrorInvalidValue;
   const int* ro = static_cast<const int*>(row_offsets);
@@ -192,11 +232,14 @@ extern "C" int tc_intersect_csr_launch(int mode, const void* row_offsets, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case MODE_COUNT:
-      return launch_mode<MODE_COUNT>(ro, c, pu, pv, pe, n_rows, width, po, n_out, s);
+      return launch_mode<MODE_COUNT>(ro, c, pu, pv, pe, n_rows, width, rows_per_block, lanes, po,
+                                     n_out, s);
     case MODE_PER_NODE:
-      return launch_mode<MODE_PER_NODE>(ro, c, pu, pv, pe, n_rows, width, po, n_out, s);
+      return launch_mode<MODE_PER_NODE>(ro, c, pu, pv, pe, n_rows, width, rows_per_block, lanes,
+                                        po, n_out, s);
     case MODE_SUPPORT:
-      return launch_mode<MODE_SUPPORT>(ro, c, pu, pv, pe, n_rows, width, po, n_out, s);
+      return launch_mode<MODE_SUPPORT>(ro, c, pu, pv, pe, n_rows, width, rows_per_block, lanes,
+                                       po, n_out, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -20,7 +20,11 @@ templated on the mode) take the chunk's ``u, v`` and the CSR and read each
 row's two lists straight from it: the panel gather is fused in, and the
 per-node and support kernels add each hit into the chunk's per-vertex or
 per-edge output with atomics, so the engine's ``pallas`` paths materialise
-no panels and no attribution arrays.
+no panels and no attribution arrays.  Their ``tiles=(rows_per_block,
+lanes)`` sets the kernel's rows (query edges) per block and lanes per row
+(8, 16 or 32) at run time — the knob :mod:`repro_torch.core.tuning`
+searches; ``None`` is :func:`csr_default_tiles` of the width.  A pick the
+card cannot launch raises.  The result never depends on it.
 
 The TPU kernel reduces an ``Lu × Lv`` equality cube per row to keep its
 vector unit full.  The rows are sorted, so here each lane binary-searches
@@ -29,10 +33,13 @@ and the kernel is bound by reading the two panels.
 
 Each wrapper checks its inputs, allocates its outputs, launches on the
 current stream and raises on a launch error; it counts its launches in
-:data:`launches`.  The wrappers take CUDA tensors only — the CPU path is
+:data:`launches`, under a lock, so launches from several threads (the
+service's lanes) are all counted.  The wrappers take CUDA tensors only — the CPU path is
 :mod:`.ops`, which sends CPU tensors to the plain versions in :mod:`.ref`.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -46,11 +53,27 @@ __all__ = [
     "launches",
     "reset_launches",
     "DEFAULT_WARPS_PER_BLOCK",
+    "CSR_LANES",
+    "CSR_MAX_THREADS",
+    "CSR_SHARE",
+    "CSR_MAX_SMEM",
+    "csr_default_tiles",
+    "csr_smem_bytes",
+    "check_csr_tiles",
 ]
 
-# one count per kernel, raised by one at each launch (never for B == 0)
+# one count per kernel, raised by one at each launch (never for B == 0),
+# under _launches_lock
 launches = {"intersect_count": 0, "intersect_per_node": 0, "intersect_support": 0,
             "intersect_count_csr": 0, "intersect_per_node_csr": 0, "intersect_support_csr": 0}
+_launches_lock = threading.Lock()
+
+# the CSR kernel's limits (csrc/intersect_csr.cu): lanes per row, threads
+# per block, ints of shared memory per row and bytes of it per block
+CSR_LANES = (8, 16, 32)
+CSR_MAX_THREADS = 1024
+CSR_SHARE = 1024
+CSR_MAX_SMEM = 232448
 
 DEFAULT_WARPS_PER_BLOCK = 8
 _MODES = {"intersect_count": 0, "intersect_per_node": 1, "intersect_support": 2}
@@ -60,8 +83,14 @@ _ELEM_BYTES = {torch.int32: 4, torch.int16: 2}
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    for k in launches:
-        launches[k] = 0
+    with _launches_lock:
+        for k in launches:
+            launches[k] = 0
+
+
+def _count_launch(kind: str) -> None:
+    with _launches_lock:
+        launches[kind] += 1
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -111,7 +140,7 @@ def _launch(kind: str, a, b, count, arm, closure, tiles) -> None:
         )
     if err != 0:
         raise RuntimeError(f"{kind} kernel launch failed: cudaError_t {err}")
-    launches[kind] += 1
+    _count_launch(kind)
 
 
 def intersect_count_cuda(a: torch.Tensor, b: torch.Tensor, tiles=None) -> torch.Tensor:
@@ -175,7 +204,40 @@ def _check_n_out(n_out) -> int:
     return int(n_out)
 
 
-def _launch_csr(kind: str, row_offsets, col, u, v, edge_idx, width, out, n_out) -> None:
+def csr_default_tiles(width: int) -> tuple[int, int]:
+    """The CSR kernel's pick when no tiles are given: lanes per row by the
+    bucket width (8 to 16, 16 to 64, 32 above) and a 256-thread block."""
+    lanes = 8 if width <= 16 else (16 if width <= 64 else 32)
+    return 256 // lanes, lanes
+
+
+def csr_smem_bytes(rows_per_block: int, width: int) -> int:
+    """Shared memory one block of the CSR kernel takes: the longer list of
+    each row, up to ``CSR_SHARE`` ints."""
+    return 4 * int(rows_per_block) * min(int(width), CSR_SHARE)
+
+
+def check_csr_tiles(tiles, width: int) -> tuple[int, int]:
+    """``(rows_per_block, lanes)`` as ints; raises ``ValueError`` for a pick
+    the kernel cannot launch at ``width``: lanes outside ``CSR_LANES``, a
+    block that is not whole warps or exceeds ``CSR_MAX_THREADS``, or more
+    shared memory than ``CSR_MAX_SMEM``."""
+    rows, lanes = (int(t) for t in tiles)
+    threads = rows * lanes
+    if lanes not in CSR_LANES:
+        raise ValueError(f"tiles={tuple(tiles)}: lanes per row must be one of {CSR_LANES}")
+    if rows < 1 or threads % 32 or threads > CSR_MAX_THREADS:
+        raise ValueError(f"tiles={tuple(tiles)}: rows x lanes = {threads} threads; a block "
+                         f"takes whole warps, at most {CSR_MAX_THREADS} threads")
+    if csr_smem_bytes(rows, width) > CSR_MAX_SMEM:
+        raise ValueError(f"tiles={tuple(tiles)} at width {width}: "
+                         f"{csr_smem_bytes(rows, width)} bytes of shared memory; at most "
+                         f"{CSR_MAX_SMEM} fit")
+    return rows, lanes
+
+
+def _launch_csr(kind: str, row_offsets, col, u, v, edge_idx, width, out, n_out, tiles) -> None:
+    rows, lanes = (0, 0) if tiles is None else check_csr_tiles(tiles, width)
     n = u.shape[0]
     if n == 0:
         return
@@ -187,41 +249,44 @@ def _launch_csr(kind: str, row_offsets, col, u, v, edge_idx, width, out, n_out) 
         err = lib.tc_intersect_csr_launch(
             _CSR_MODES[kind], row_offsets.data_ptr(), col.data_ptr(), u.data_ptr(),
             v.data_ptr(), edge_idx.data_ptr() if edge_idx is not None else None,
-            n, int(width), out.data_ptr(), int(n_out), stream)
+            n, int(width), rows, lanes, out.data_ptr(), int(n_out), stream)
     if err != 0:
         raise RuntimeError(f"{kind} kernel launch failed: cudaError_t {err}")
-    launches[kind] += 1
+    _count_launch(kind)
 
 
 def intersect_count_csr_cuda(row_offsets: torch.Tensor, col: torch.Tensor, u: torch.Tensor,
-                             v: torch.Tensor, width: int) -> torch.Tensor:
+                             v: torch.Tensor, width: int, tiles=None) -> torch.Tensor:
     """(B,) int32 sizes of N⁺(u[i]) ∩ N⁺(v[i]), each list cut to ``width``
     entries; 0 where u or v is −1.  The lists are read from the CSR."""
     _check_csr(row_offsets, col, u, v, width)
     count = torch.empty(u.shape, dtype=torch.int32, device=u.device)
-    _launch_csr("intersect_count_csr", row_offsets, col, u, v, None, width, count, u.shape[0])
+    _launch_csr("intersect_count_csr", row_offsets, col, u, v, None, width, count, u.shape[0],
+                tiles)
     return count
 
 
 def intersect_per_node_csr_cuda(row_offsets: torch.Tensor, col: torch.Tensor, u: torch.Tensor,
-                                v: torch.Tensor, width: int, n_out: int) -> torch.Tensor:
+                                v: torch.Tensor, width: int, n_out: int,
+                                tiles=None) -> torch.Tensor:
     """(n_out,) int32 triangle incidences of the chunk's rows: each common
     entry x of the two lists (cut to ``width``) adds 1 to x, and each row's
     count adds to u and to v.  Indices are clipped to [0, n_out)."""
     _check_csr(row_offsets, col, u, v, width)
     out = torch.zeros((_check_n_out(n_out),), dtype=torch.int32, device=u.device)
-    _launch_csr("intersect_per_node_csr", row_offsets, col, u, v, None, width, out, n_out)
+    _launch_csr("intersect_per_node_csr", row_offsets, col, u, v, None, width, out, n_out, tiles)
     return out
 
 
 def intersect_support_csr_cuda(row_offsets: torch.Tensor, col: torch.Tensor, u: torch.Tensor,
                                v: torch.Tensor, edge_idx: torch.Tensor, width: int,
-                               m_out: int) -> torch.Tensor:
+                               m_out: int, tiles=None) -> torch.Tensor:
     """(m_out,) int32 per-directed-edge support of the chunk's rows: each
     common entry adds 1 to the two CSR edges that hold it (slot j of u's
     list, slot k of v's), and each row's count adds to ``edge_idx``.
     Indices are clipped to [0, m_out); ``edge_idx`` −1 adds nothing."""
     _check_csr(row_offsets, col, u, v, width, edge_idx)
     out = torch.zeros((_check_n_out(m_out),), dtype=torch.int32, device=u.device)
-    _launch_csr("intersect_support_csr", row_offsets, col, u, v, edge_idx, width, out, m_out)
+    _launch_csr("intersect_support_csr", row_offsets, col, u, v, edge_idx, width, out, m_out,
+                tiles)
     return out

@@ -186,9 +186,12 @@ def main() -> None:
                     help="where the engine runs (default: %(default)s; "
                          "raises when no card is visible)")
     ap.add_argument("--tile-cache", default=None, metavar="FILE",
-                    help="not yet ported (core/tuning.py, ROADMAP queue A)")
+                    help="versioned tile-autotune cache (JSON) steering the "
+                         "pallas CSR kernels' rows per block and lanes per row")
     ap.add_argument("--autotune", action="store_true",
-                    help="not yet ported (core/tuning.py, ROADMAP queue A)")
+                    help="grid-search tiles for shapes missing from "
+                         "--tile-cache (paper §III-D5 sweep) and persist "
+                         "the winners")
     ap.add_argument("--baseline", action="store_true", help="also run NumPy CPU baseline")
     ap.add_argument("--distributed", action="store_true",
                     help="not yet ported (§III-E striping, ROADMAP queue A)")
@@ -210,8 +213,6 @@ def main() -> None:
         ap.error("--max-wedge-chunk must be a positive number of wedge slots")
     if args.distributed or args.method == "distributed":
         ap.error("--distributed / --method distributed " + NOT_PORTED.format(item="Distributed"))
-    if args.tile_cache is not None or args.autotune:
-        ap.error("--tile-cache / --autotune " + NOT_PORTED.format(item="core/tuning.py"))
     if args.method is None:
         args.method = "auto"
     try:
@@ -232,8 +233,13 @@ def _run_count(args, log) -> None:
         graph, info = resolve_graph(args, log=log)
     build_s = time.time() - t_build0
 
+    tuner = None
+    if args.tile_cache is not None or args.autotune:
+        from repro_torch.core.tuning import AutoTuner
+
+        tuner = AutoTuner(args.tile_cache, tune_on_miss=args.autotune, device=args.device)
     tc = TriangleCounter(method=args.method, max_wedge_chunk=args.max_wedge_chunk,
-                         device=args.device)
+                         tuner=tuner, device=args.device)
     count_input = graph
     if args.clustering_summary:
         # normalize to an OrientedCSR once up front so the count and the
@@ -253,6 +259,8 @@ def _run_count(args, log) -> None:
         f"{es.n_chunks} chunk(s), peak wedge buffer {es.peak_wedge_buffer})")
     if es.fallback_reason:
         log(f"note: {es.fallback_reason}")
+    if tuner is not None:
+        log(f"tile cache: {tuner.n_hits} hit(s), {tuner.n_tuned} shape(s) tuned")
 
     expected = info.get("expected_triangles")
     if expected is not None and t != expected:

@@ -191,10 +191,13 @@ def test_support_on_arrays_empty_and_not_ported():
     assert run.support.shape == (0,) and run.n_chunks == 0
     arrays = (np.array([0, 1, 1], np.int32), np.array([0], np.int32),
               np.array([1], np.int32), np.array([1, 0], np.int32))
-    for kw, item in ((dict(tuner=object()), "tuning"), (dict(mesh=object()), "Distributed"),
+    for kw, item in ((dict(mesh=object()), "Distributed"),
                      (dict(shorter_side=True), "Distributed")):
         with pytest.raises(NotImplementedError, match=item):
             an.support_on_arrays(*arrays, device="cpu", **kw)
+    # the tuner is ported (core/tuning.py): a wedge run never asks it
+    run = an.support_on_arrays(*arrays, device="cpu", tuner=object())
+    assert run.support.tolist() == [0] and run.method == "wedge_bsearch"
 
 
 def test_edge_support_counter_reuse_and_conflicts(graphs, ref_support):
