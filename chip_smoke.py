@@ -4,6 +4,9 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --cards``, on a machine with several cards, runs
+only phase 8i's kron-21 checks over all of them: ``main_cards``.)
+
 Phases, each of which fails loudly (non-zero exit, no final line):
 
 1. device  — a CUDA card is required; prints its nvidia-smi name and power limit;
@@ -106,6 +109,19 @@ Phases, each of which fails loudly (non-zero exit, no final line):
              launching Σ n_chunks of the passes and no panel kernel; then
              ``python -m repro_torch.serve.loadgen --dataset karate
              --attest-fusion`` (45, fused);
+8i. distributed — §III-E on the card: kron-21 at 2^26 counted through
+             ``make_local_mesh()`` (one stripe) and a mesh naming cuda:0 four
+             times, both T21; per_node and edge_support at 4 stripes on the
+             resident CSR equal phase 6's vectors, support over the uint16
+             wire and the int32 one; ``n_stripes``, ``stripe_skew``,
+             ``peak_wedge_buffer`` ≤ the budget, the wall and the peak above
+             the resident CSR of each run; no CSR kernel launches (the
+             stripes are torch ops, as the reference's are XLA).  kron-16
+             counted from 4 ``.tricsr`` stripe slabs; the kron-12 truss on 4
+             stripes equal to the scipy peel; 4 kron-16 batches of 4,096
+             through distributed probes equal a wedge_bsearch counter; the
+             count CLI (``--distributed``) and serve_graph (``--method
+             distributed``, verified) on the card's local mesh;
 9. attention_kernel — the flash-attention kernel against its plain version
              (``flash_attention_torch``) and the dense oracle on the card: the
              reference test's five cases, a causal Sq > Skv case (its rows
@@ -2027,6 +2043,254 @@ def phase_graph_service(csr, per_node21, support21, tile_cache):
 
 
 # ---------------------------------------------------------------------------
+# phase 8i: §III-E distributed counting
+# ---------------------------------------------------------------------------
+
+DIST_STRIPES = 4          # a mesh that names the one card four times
+DIST_SCALE, DIST_SEED, DIST_BUDGET = 16, 1503, 1 << 22   # slabs, stream, CLIs
+DIST_STREAM_BATCHES, DIST_STREAM_BATCH = 4, 4096
+
+
+def dist_run(label, kind, graph, mesh, budget, expect=None, **kw):
+    """One ``TriangleCounter(method="distributed", mesh=mesh)`` call on the
+    card, with the CSR kernels' launch counts set to 0 just before it: none
+    may move (the stripes are torch ops, as the reference's are XLA).
+    Returns (value, record); the record is emitted."""
+    from repro_torch.core import TriangleCounter
+    from repro_torch.kernels.triangle_count import launches, reset_launches
+
+    tc = TriangleCounter(method="distributed", mesh=mesh, max_wedge_chunk=budget, **kw)
+    on_card = mesh.lead.type == "cuda"
+    sync()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if on_card else 0
+    reset_launches()
+    t0 = time.perf_counter()
+    value = getattr(tc, kind)(graph)
+    sync()
+    sec = time.perf_counter() - t0
+    ln = dict(launches)
+    st = tc.last_stats
+    check(not any(ln.values()), f"distributed {label}: kernels launched {ln}")
+    check(st.method == "distributed" and st.fallback_reason is None,
+          f"distributed {label}: executed {st.method} ({st.fallback_reason})")
+    check(st.n_stripes == mesh.size, f"distributed {label}: {st.n_stripes} stripes")
+    check(budget is None or st.peak_wedge_buffer <= budget,
+          f"distributed {label}: peak wedge buffer {st.peak_wedge_buffer} > {budget}")
+    if expect is not None:
+        got = value if kind == "count" else int(value.sum())
+        check(got == expect, f"distributed {label}: {got} != {expect}")
+    rec = {"label": label, "kind": kind, "stripes": st.n_stripes, "budget": budget,
+           "n_chunks": st.n_chunks, "peak_wedge_buffer": st.peak_wedge_buffer,
+           "stripe_skew": st.stripe_skew, "straggler_stripe": st.straggler_stripe,
+           "seconds": sec, "timings": st.timings, "launches": ln,
+           "peak_above_resident_bytes":
+               torch.cuda.max_memory_allocated() - base if on_card else None}
+    emit({"phase": "distributed_run", **rec})
+    return value, rec
+
+
+def phase_distributed(edges, csr, per_node21, support21, device="cuda"):
+    """§III-E on the card (ROADMAP A6).  kron-21 at 2^26: the count through
+    ``make_local_mesh()`` (one stripe) and a 4-stripe mesh on cuda:0, both
+    T21; per-node and support at 4 stripes on the resident CSR equal phase
+    6's vectors, support with the compressed (uint16) wire and without it;
+    no CSR kernel launches in any of them.  kron-16: the count from 4
+    ``.tricsr`` stripe slabs.  kron-12: the truss through the 4-stripe mesh
+    equals the scipy peel.  The incremental counter: 4 kron-16 batches
+    through distributed probes equal a wedge_bsearch counter.  The count
+    and serve_graph CLIs on the local mesh, as a user runs them."""
+    from repro_torch.analytics import k_truss_decomposition
+    from repro_torch.core import (
+        DistributedBackend,
+        IncrementalTriangleCounter,
+        TriangleCounter,
+        run_workload,
+        workload_from_csr,
+    )
+    from repro_torch.core.distributed import count_triangles_distributed_slabs
+    from repro_torch.distributed import Mesh
+    from repro_torch.graphs import kronecker_rmat, temporal_edge_stream, undirected_pairs
+    from repro_torch.graphs.formats import canonicalize_edges, edge_array_to_csr
+    from repro_torch.graphs.io import CSRGraph, load_tricsr_stripes, save_tricsr_stripes
+    from repro_torch.kernels.triangle_count import launches, reset_launches
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t_phase = time.perf_counter()
+    budget = BUDGETS_21[0]
+    one = make_local_mesh(device=device)
+    n_dev = torch.cuda.device_count() if device == "cuda" else 1
+    check(one.size == n_dev, f"make_local_mesh: {one.size} stripes on {n_dev} device(s)")
+    mesh = Mesh([device] * DIST_STRIPES)
+    check(mesh.lead == csr.device, f"mesh leads on {mesh.lead}, the CSR lies on {csr.device}")
+    dist_run("kron21 count, make_local_mesh", "count", edges, one, budget, T21)
+    dist_run(f"kron21 count, {DIST_STRIPES} stripes", "count", edges, mesh, budget, T21)
+    pn, _ = dist_run("kron21 per_node", "per_node", csr, mesh, budget, 3 * T21)
+    check(np.array_equal(pn, per_node21), "distributed per_node differs from phase 6's in "
+                                          f"{int((pn != per_node21).sum())} elements")
+    sup, _ = dist_run("kron21 support, uint16 wire", "edge_support", csr, mesh, budget,
+                      3 * T21)
+    check(np.array_equal(sup, support21), "distributed support differs from phase 6's in "
+                                          f"{int((sup != support21).sum())} elements")
+    del pn, sup
+    # the int32 wire through the backend itself (the counter always compresses)
+    backend = DistributedBackend(mesh, compress=False)
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    wide, plan = run_workload(backend, "support", workload_from_csr(csr), budget=budget)
+    sync()
+    wide_s = time.perf_counter() - t0
+    check(not any(launches.values()), f"distributed wide support: kernels {dict(launches)}")
+    check(np.array_equal(wide, support21), "distributed support (int32 wire) differs from "
+                                           f"phase 6's in {int((wide != support21).sum())}")
+    emit({"phase": "distributed_run", "label": "kron21 support, int32 wire",
+          "kind": "edge_support", "stripes": plan.n_stripes, "n_chunks": plan.n_chunks,
+          "peak_wedge_buffer": plan.peak_buffer, "seconds": wide_s, "timings": plan.timings})
+    del wide
+
+    # kron-16: the count from 4 stripe slabs of its .tricsr cache
+    e16 = kronecker_rmat(DIST_SCALE, edge_factor=16, seed=DIST_SEED)
+    t16 = TriangleCounter(method="pallas", max_wedge_chunk=DIST_BUDGET,
+                          device=device).count(e16)
+    row, col = edge_array_to_csr(canonicalize_edges(e16))
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "kron16.tricsr")
+        save_tricsr_stripes(base, CSRGraph(row, col, row.shape[0] - 1), DIST_STRIPES)
+        slabs = load_tricsr_stripes(base, DIST_STRIPES, verify=True)
+        stats = {}
+        reset_launches()
+        t0 = time.perf_counter()
+        got = count_triangles_distributed_slabs(slabs, mesh, max_wedge_chunk=DIST_BUDGET,
+                                                stats_out=stats)
+        sync()
+        slab_s = time.perf_counter() - t0
+    check(got == t16, f"kron-16 slab count {got} != {t16}")
+    check(not any(launches.values()), f"kron-16 slab count: kernels {dict(launches)}")
+    emit({"phase": "distributed_slabs", "graph": f"kron-{DIST_SCALE}", "slabs": DIST_STRIPES,
+          "triangles": got, "seconds": slab_s, **stats})
+
+    # kron-12: the truss on 4 stripes against the scipy peel
+    small = kronecker_rmat(ORACLE_SCALE, edge_factor=16, seed=TRUSS_SEED)
+    reset_launches()
+    t0 = time.perf_counter()
+    dec = k_truss_decomposition(small, method="distributed", mesh=mesh,
+                                max_wedge_chunk=TRUSS_BUDGET)
+    sync()
+    truss_s = time.perf_counter() - t0
+    check(dec.method == "distributed", f"distributed truss executed {dec.method}")
+    check(not any(launches.values()), f"distributed truss: kernels {dict(launches)}")
+    want, _ = truss_oracle(small)
+    n = int(small.max()) + 1
+    lo = np.minimum(dec.u, dec.v).astype(np.int64)
+    hi = np.maximum(dec.u, dec.v).astype(np.int64)
+    got = dict(zip((lo * n + hi).tolist(), dec.trussness.tolist()))
+    check(got == want, f"distributed truss kron-{ORACLE_SCALE} differs from the scipy peel "
+                       f"on {sum(got.get(k) != t for k, t in want.items())} edges")
+    emit({"phase": "distributed_truss", "graph": f"kron-{ORACLE_SCALE}", "edges": len(want),
+          "max_k": dec.max_k, "rounds": dec.rounds,
+          "n_support_launches": dec.n_support_launches, "seconds": truss_s})
+
+    # the incremental counter: distributed probes against wedge_bsearch probes
+    und = undirected_pairs(e16)
+    held = []
+    for batch in temporal_edge_stream(und, batch_size=DIST_STREAM_BATCH, seed=0):
+        held.append(batch.insert)
+        if len(held) == DIST_STREAM_BATCHES:
+            break
+    keys = und[:, 0] << np.int64(32) | und[:, 1]
+    h = np.concatenate(held)
+    keep = np.ones(und.shape[0], bool)
+    keep[np.searchsorted(keys, h[:, 0] << np.int64(32) | h[:, 1])] = False
+    t0 = time.perf_counter()
+    inc = IncrementalTriangleCounter(und[keep], max_wedge_chunk=DIST_BUDGET,
+                                     method="distributed", mesh=mesh)
+    ref = IncrementalTriangleCounter(und[keep], max_wedge_chunk=DIST_BUDGET,
+                                     method="wedge_bsearch", device=device)
+    boot_s = time.perf_counter() - t0
+    check(inc.count == ref.count, f"distributed bootstrap {inc.count} != {ref.count}")
+    updates = []
+    reset_launches()
+    for i, batch in enumerate(held):
+        sync()
+        t0 = time.perf_counter()
+        d = inc.insert(batch)
+        sync()
+        sec = time.perf_counter() - t0
+        check(d == ref.insert(batch) and inc.count == ref.count,
+              f"distributed insert {i}: {d}, count {inc.count} != {ref.count}")
+        check(np.array_equal(inc.per_node(), ref.per_node()),
+              f"distributed insert {i}: per_node differs")
+        st = inc.last_update_stats
+        check(st.probe_method == "distributed", f"insert {i} probed on {st.probe_method}")
+        updates.append({"delta": d, "seconds": sec, "n_probe_launches": st.n_probe_launches,
+                        "peak_wedge_buffer": st.peak_wedge_buffer})
+    check(inc.count == t16, f"after the inserts {inc.count} != kron-16's {t16}")
+    check(not any(launches.values()), f"distributed probes: kernels {dict(launches)}")
+    emit({"phase": "distributed_stream", "graph": f"kron-{DIST_SCALE}",
+          "batch": DIST_STREAM_BATCH, "bootstrap_s": boot_s, "updates": updates})
+
+    # the CLIs, at small scale
+    flags = ["--generator", "kronecker", "--scale", str(DIST_SCALE), "--seed", str(DIST_SEED),
+             "--max-wedge-chunk", str(DIST_BUDGET), "--device", device, "--json"]
+    out, err, cli_s = run_module("repro_torch.launch.count", *flags, "--distributed")
+    check(out["triangles"] == t16 and out["method"] == "distributed",
+          f"count --distributed: {out['triangles']} via {out['method']}")
+    check(f"mesh: {n_dev} stripe(s) on {n_dev} device(s)" in err, "count CLI: no mesh line")
+    serve, serve_s = run_serve_cli(
+        "--generator", "kronecker", "--scale", "12", "--seed", str(DIST_SEED),
+        "--stream", "sliding_window", "--batch-size", "1024", "--max-batches", "8",
+        "--max-wedge-chunk", str(DIST_BUDGET), "--method", "distributed",
+        "--device", device, "--json")
+    check(serve["verified"] is True and serve["probe_method"] == "distributed",
+          f"serve_graph distributed: verified {serve['verified']}, "
+          f"probes {serve['probe_method']}")
+    emit({"phase": "distributed_cli", "count_s": cli_s, "count_triangles": out["triangles"],
+          "serve_s": serve_s, "serve_triangles": serve["triangles"],
+          "serve_update_p50_ms": serve["update_p50_ms"],
+          "phase_s": time.perf_counter() - t_phase})
+
+
+def phase_distributed_cards(edges, csr, per_node21, support21):
+    """§III-E over every visible card (``--cards``, on a machine with more
+    than one): kron-21 at 2^26 counted on one stripe of the lead card, on 4
+    stripes of it and over ``make_local_mesh()`` (one stripe a card), T21
+    each; per-node and support (both wires) over the cards equal the
+    pallas vectors; no CSR kernel launches.  Returns the runs' records."""
+    from repro_torch.core import DistributedBackend, run_workload, workload_from_csr
+    from repro_torch.distributed import Mesh
+    from repro_torch.launch.mesh import make_local_mesh
+
+    budget = BUDGETS_21[0]
+    cards = make_local_mesh()
+    check(cards.size == torch.cuda.device_count() > 1,
+          f"--cards needs several cards, make_local_mesh() has {cards.size}")
+    lead = csr.device
+    recs = []
+    for label, mesh in (("1 stripe, lead card", Mesh([lead])),
+                        (f"{DIST_STRIPES} stripes, lead card", Mesh([lead] * DIST_STRIPES)),
+                        (f"{cards.size} cards", cards)):
+        recs.append(dist_run(f"kron21 count, {label}", "count", edges, mesh, budget, T21)[1])
+    pn, rec = dist_run(f"kron21 per_node, {cards.size} cards", "per_node", csr, cards, budget,
+                       3 * T21)
+    check(np.array_equal(pn, per_node21), "per_node over the cards differs from pallas")
+    sup, rec2 = dist_run(f"kron21 support, {cards.size} cards", "edge_support", csr, cards,
+                         budget, 3 * T21)
+    check(np.array_equal(sup, support21), "support over the cards differs from pallas")
+    sync()
+    t0 = time.perf_counter()
+    wide, _ = run_workload(DistributedBackend(cards, compress=False), "support",
+                           workload_from_csr(csr), budget=budget)
+    sync()
+    check(np.array_equal(wide, support21), "int32-wire support over the cards differs")
+    emit({"phase": "distributed_run", "label": f"kron21 support, int32 wire, {cards.size} cards",
+          "seconds": time.perf_counter() - t0})
+    return recs + [rec, rec2]
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the flash-attention kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -2455,6 +2719,24 @@ def phase_attention_timing(rate):
 # ---------------------------------------------------------------------------
 
 
+def main_cards() -> int:
+    """``python3 chip_smoke.py --cards``: phase 8i's scheme over every
+    visible card (a multi-card machine), against the pallas vectors."""
+    from repro_torch.core import TriangleCounter, prepare_oriented
+    from repro_torch.graphs import kronecker_rmat
+
+    name, _ = phase_device()
+    phase_build()
+    edges = kronecker_rmat(21, edge_factor=16, seed=1503)
+    csr = prepare_oriented(edges, device="cuda")
+    tc = TriangleCounter(method="pallas", max_wedge_chunk=BUDGETS_21[0])
+    vectors = tc.per_node(csr), tc.edge_support(csr)
+    phase_distributed_cards(edges, csr, *vectors)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a "
@@ -2465,6 +2747,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    if sys.argv[1:] == ["--cards"]:
+        return main_cards()
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} (only --cards)")
 
     t_start = time.perf_counter()
     name, smi_line = phase_device()
@@ -2501,6 +2786,7 @@ def main() -> int:
     phase_serve_graph_cli()
     tile_cache, tuning_launches = phase_tuning(csr, name, per_node21, support21)
     service_launches = phase_graph_service(csr, per_node21, support21, tile_cache)
+    phase_distributed(edges, csr, per_node21, support21)
     del edges, per_node21, support21
     chunks = real_chunks(csr, BUDGETS_21[0])
     phase_kernels_real(cmp, ccmp, csr, chunks)

@@ -22,7 +22,7 @@ import time
 import numpy as np
 
 from repro_torch import obs
-from repro_torch._device import resolve_device
+from repro_torch.distributed.mesh import mesh_device
 from repro_torch.core.engine import TriangleCounter, degree_histogram, prepare_oriented
 
 from .support import edge_support
@@ -268,6 +268,7 @@ def graph_report(
     max_wedge_chunk: int | None = None,
     include_truss: bool = True,
     top_k: int = 5,
+    mesh=None,
     device=None,
 ) -> dict:
     """Full analytics report, preprocessing the graph exactly once.
@@ -278,16 +279,19 @@ def graph_report(
     count, per-node scatter, per-edge support, truss peel — consumes
     that CSR, so ingestion/preprocessing is never repeated.  ``method``
     selects the kernel backend for *every* stage (support and truss
-    included — ``pallas`` runs the CUDA kernels in every stage).  Returns a
-    JSON-ready dict (plain ints/floats/lists) with per-stage timings.
+    included — ``pallas`` runs the CUDA kernels in every stage).  ``mesh``
+    (a :class:`repro_torch.distributed.Mesh`; the reference's report takes
+    none) goes to every stage, so ``method="distributed"`` stripes them
+    all over it.  Returns a JSON-ready dict (plain ints/floats/lists) with
+    per-stage timings.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     t0 = time.perf_counter()
     with obs.span("report.preprocess", cat="analytics"):
         deg, n_from_input = degree_histogram(graph, n_nodes)
         csr = prepare_oriented(graph, n_nodes, device=dev)
     prep_s = time.perf_counter() - t0
-    tc = TriangleCounter(method=method, max_wedge_chunk=max_wedge_chunk, device=dev)
+    tc = TriangleCounter(method=method, max_wedge_chunk=max_wedge_chunk, mesh=mesh, device=dev)
     report: dict = {
         "n_nodes": int(csr.n_nodes) if csr is not None else n_from_input,
         "n_edges": int(csr.n_directed_edges) if csr is not None else 0,
@@ -338,6 +342,7 @@ def graph_report(
             csr if csr is not None else np.zeros((0, 2), np.int32),
             method=method,
             max_wedge_chunk=max_wedge_chunk,
+            mesh=mesh,
             device=dev,
         )
     timings["support"] = time.perf_counter() - t0
@@ -360,6 +365,7 @@ def graph_report(
                 csr if csr is not None else np.zeros((0, 2), np.int32),
                 max_wedge_chunk=max_wedge_chunk,
                 method=method,
+                mesh=mesh,
                 device=dev,
             )
         timings["truss"] = time.perf_counter() - t0

@@ -9,8 +9,9 @@ triangle_count`` for every backend and budget.
 
 Everything routes through the engine's backends
 (:func:`repro_torch.core.engine.resolve_backend` / ``run_workload``):
-``method`` selects ``wedge_bsearch`` (torch ops), ``panel`` or ``pallas``
-(the CUDA support kernel that reads the CSR), chunks honor
+``method`` selects ``wedge_bsearch`` (torch ops), ``panel``, ``pallas``
+(the CUDA support kernel that reads the CSR) or ``distributed`` (the
+§III-E stripes over a ``mesh=``), chunks honor
 ``max_wedge_chunk``, device partials are int32 and the per-edge totals
 accumulate in int64.
 """
@@ -21,9 +22,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from repro_torch._device import resolve_device
 from repro_torch.core.engine import (
-    NOT_PORTED,
     TriangleCounter,
     _host,
     chunk_support_kernel,
@@ -33,6 +32,7 @@ from repro_torch.core.engine import (
     resolve_method,
     run_workload,
 )
+from repro_torch.distributed.mesh import mesh_device
 
 __all__ = [
     "EdgeSupport",
@@ -74,20 +74,20 @@ def support_on_arrays(
     The low-level entry the truss peel drives round after round:
     ``src``/``col`` may carry a −1-padded tail (padded slots get zero
     support).  The arrays may be numpy arrays or tensors; each goes to the
-    run's ``device`` (``None``: the card) once.  ``method="auto"``
-    resolves against ``out_degree`` for that device.  ``tuner`` (an
-    :class:`repro_torch.core.tuning.AutoTuner`) steers the support CSR
-    kernel's knobs; ``mesh`` and ``shorter_side`` are not ported yet and
-    raise.
+    run's ``device`` (``None``: the card; with a ``mesh``, its lead
+    device) once.  ``method="auto"`` resolves against ``out_degree`` for
+    that device, and to the §III-E striped backend when a mesh of more
+    than one stripe is given; ``shorter_side`` goes to that backend.
+    ``tuner`` (an :class:`repro_torch.core.tuning.AutoTuner`) steers the
+    support CSR kernel's knobs.
     """
-    if mesh is not None or shorter_side:
-        raise NotImplementedError("support_on_arrays(mesh=/shorter_side=) "
-                                  + NOT_PORTED.format(item="Distributed"))
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     if _host(src).shape[0] == 0:
         return SupportRun(np.zeros((0,), np.int64), 0, 0, 0, "wedge_bsearch", None)
-    resolved = resolve_method(method, out_degree, backend=dev.type)
-    backend, executed, reason = resolve_backend(resolved, "support", tuner=tuner)
+    resolved = resolve_method(method, out_degree, mesh=mesh, backend=dev.type)
+    backend, executed, reason = resolve_backend(
+        resolved, "support", tuner=tuner, mesh=mesh, shorter_side=shorter_side
+    )
     work = make_workload(row_offsets, col, out_degree, src, col, n_steps=n_steps, device=dev)
     sup, plan = run_workload(
         backend, "support", work, budget=max_wedge_chunk, bucket_pow2=bucket_pow2
@@ -152,22 +152,20 @@ def edge_support(
     cached undirected or compressed CSR — the front door of
     :meth:`repro_torch.core.engine.TriangleCounter.count`.  Pass
     ``counter=`` to reuse a configured counter (its ``last_stats`` reflect
-    the call); it carries its own method, budget and device, so combining
-    it with ``method=`` / ``max_wedge_chunk=`` / ``device=`` is rejected.
-    ``mesh`` is not ported yet and raises.
+    the call); it carries its own method, budget, mesh and device, so
+    combining it with ``method=`` / ``max_wedge_chunk=`` / ``mesh=`` /
+    ``device=`` is rejected.
     """
     if counter is not None and (
         method != "auto" or max_wedge_chunk is not None or mesh is not None
         or device is not None
     ):
         raise ValueError(
-            "pass either counter= (which carries its own method/budget/device) "
+            "pass either counter= (which carries its own method/budget/mesh/device) "
             "or method=/max_wedge_chunk=/mesh=/device=, not both"
         )
-    if mesh is not None:
-        raise NotImplementedError("edge_support(mesh=) " + NOT_PORTED.format(item="Distributed"))
     tc = counter if counter is not None else TriangleCounter(
-        method=method, max_wedge_chunk=max_wedge_chunk, device=device
+        method=method, max_wedge_chunk=max_wedge_chunk, mesh=mesh, device=device
     )
     csr = prepare_oriented(edges, n_nodes, device=tc.device)
     if csr is None:

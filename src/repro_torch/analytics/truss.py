@@ -20,7 +20,9 @@ is stable; then ``k`` advances.
   and every plan equal to the reference's.
 * **backend-routed support.**  Every round runs through the engine's
   backends, so ``method="pallas"`` drives the CUDA support kernel once
-  per chunk of every round.  The spectrum is backend-independent.
+  per chunk of every round, and ``method="distributed"`` (with ``mesh=``)
+  stripes every round's support over the mesh.  The spectrum is
+  backend-independent.
 """
 from __future__ import annotations
 
@@ -29,15 +31,14 @@ import dataclasses
 import numpy as np
 
 from repro_torch import obs
-from repro_torch._device import resolve_device
 from repro_torch.core.engine import (
-    NOT_PORTED,
     _host,
     next_pow2,
     prepare_oriented,
     resolve_method,
     search_steps,
 )
+from repro_torch.distributed.mesh import mesh_device
 
 from .support import support_on_arrays
 
@@ -114,14 +115,12 @@ def k_truss_decomposition(
     cached CSR).  ``max_wedge_chunk`` bounds every support recomputation's
     wedge buffer, and ``method`` picks the backend every peel round runs
     on (``"auto"`` resolves once, against the *full* graph's degrees, for
-    ``device``; ``None`` means the card).  ``mesh`` is not ported yet and
-    raises.
+    ``device``; ``None`` means the card).  With a ``mesh`` the peel runs on
+    its lead device, and a mesh of more than one stripe makes ``"auto"``
+    the striped backend: every round's support recompute then runs the
+    §III-E stripes, pow2-bucketed as every backend's rounds are.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "k_truss_decomposition(mesh=) " + NOT_PORTED.format(item="Distributed")
-        )
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     csr = prepare_oriented(edges, n_nodes, device=dev)
     if csr is None:
         n = n_nodes if n_nodes is not None else getattr(edges, "n_nodes", 0) or 0
@@ -134,13 +133,13 @@ def k_truss_decomposition(
     # under peeling and extra steps are harmless, so every round shares
     # one n_steps, as in the reference
     steps = search_steps(csr)
-    method = resolve_method(method, csr.out_degree, backend=dev.type)
+    method = resolve_method(method, csr.out_degree, mesh=mesh, backend=dev.type)
     trussness = np.full(m, 2, np.int32)
     idx = np.arange(m)
     with obs.span("truss.round", cat="analytics",
                   args={"round": 1, "k": 3, "alive": int(idx.size)}):
         sup, launches, executed = _alive_support(
-            src0, col0, idx, n, steps, max_wedge_chunk, method, dev
+            src0, col0, idx, n, steps, max_wedge_chunk, method, dev, mesh
         )
     rounds = 1
     k = 3
@@ -158,7 +157,7 @@ def k_truss_decomposition(
                           args={"round": rounds + 1, "k": k,
                                 "alive": int(idx.size)}):
                 sup, n_chunks, executed = _alive_support(
-                    src0, col0, idx, n, steps, max_wedge_chunk, method, dev
+                    src0, col0, idx, n, steps, max_wedge_chunk, method, dev, mesh
                 )
             rounds += 1
             launches += n_chunks
@@ -172,7 +171,7 @@ def k_truss_decomposition(
     )
 
 
-def _alive_support(src0, col0, idx, n, steps, max_wedge_chunk, method, device):
+def _alive_support(src0, col0, idx, n, steps, max_wedge_chunk, method, device, mesh=None):
     """Support of the surviving edges, on the filtered (pow2-padded) CSR."""
     sub_src = src0[idx]
     sub_col = col0[idx]
@@ -187,7 +186,7 @@ def _alive_support(src0, col0, idx, n, steps, max_wedge_chunk, method, device):
     run = support_on_arrays(
         sub_row, sub_src, sub_col, sub_out,
         max_wedge_chunk=max_wedge_chunk, n_steps=steps, bucket_pow2=True,
-        method=method, device=device,
+        method=method, mesh=mesh, device=device,
     )
     return run.support[: idx.shape[0]], run.n_chunks, run.method
 

@@ -32,7 +32,8 @@ depends on it):
   one on any torn/truncated/corrupted/mis-versioned candidate.
 * Torch tensors are copied to host numpy at save; a tensor leaf of the
   restore target comes back as a tensor of its dtype on its device.
-  ``shardings=`` (restoring onto a device mesh) is not yet ported.
+  ``shardings=`` (restoring onto the LM train step's sharded mesh) is
+  held for ROADMAP A7 and raises.
 * ``CheckpointManager(async_save=True)`` snapshots to host memory
   synchronously and writes in a background thread (one in-flight save).
   ``save``/``wait`` are thread-safe, background errors surface on the
@@ -69,7 +70,8 @@ FORMAT_VERSION = 2
 
 _SHARDINGS_NOT_PORTED = (
     "restoring onto a device mesh (shardings=) is not yet ported to "
-    "repro_torch (ROADMAP A6); use the JAX package repro for it"
+    "repro_torch (ROADMAP A7: the LM train step's sharding); use the JAX "
+    "package repro for it"
 )
 
 

@@ -12,9 +12,12 @@ Public API::
     inc.insert(new_edges); inc.delete(old_edges)                  # exact deltas
     tuner = AutoTuner("tiles.json", tune_on_miss=True)             # §III-D5 sweep
     TriangleCounter(method="pallas", tuner=tuner).count(edge_array)
+    mesh = Mesh(["cuda"] * 4)                                      # §III-E stripes
+    t = TriangleCounter(method="distributed", mesh=mesh).count(edge_array)
+    t = count_triangles_distributed(edge_array, mesh)
 
-Only the ported names are exported; distributed counting (ROADMAP A6) is
-not ported yet.
+``Mesh`` is :class:`repro_torch.distributed.Mesh`; a mesh may repeat a
+device.  Only the ported names are exported.
 """
 from .preprocess import (
     OrientedCSR,
@@ -43,6 +46,7 @@ from .engine import (
     WedgeBackend,
     PanelBackend,
     PallasBackend,
+    DistributedBackend,
     register_backend,
     make_backend,
     resolve_backend,
@@ -51,6 +55,13 @@ from .engine import (
     run_workload,
 )
 from .approx import count_triangles_doulion
+from .distributed import (
+    stripe_edges,
+    plan_striped_chunks,
+    make_distributed_count_fn,
+    count_triangles_distributed,
+    count_triangles_distributed_csr,
+)
 from .tuning import AutoTuner, TileCache
 from .incremental import IncrementalTriangleCounter, UpdateStats
 from .count import (
@@ -92,6 +103,7 @@ __all__ = [
     "WedgeBackend",
     "PanelBackend",
     "PallasBackend",
+    "DistributedBackend",
     "register_backend",
     "make_backend",
     "resolve_backend",
@@ -99,6 +111,11 @@ __all__ = [
     "workload_from_csr",
     "run_workload",
     "count_triangles_doulion",
+    "stripe_edges",
+    "plan_striped_chunks",
+    "make_distributed_count_fn",
+    "count_triangles_distributed",
+    "count_triangles_distributed_csr",
     "AutoTuner",
     "TileCache",
     "IncrementalTriangleCounter",

@@ -95,7 +95,9 @@ def _batched_search(col, lo, hi, target, n_steps: int):
     return (lo < end) & (col[safe] == target), safe
 
 
-def _expand_close_body(src_e, dst_e, row_offsets, col, out_deg, wedge_budget, n_steps):
+def _expand_close_body(
+    src_e, dst_e, row_offsets, col, out_deg, wedge_budget, n_steps, shorter_side=False
+):
     """Shared wedge expansion + closure; returns every per-slot artifact.
 
     ``(hit, edge_id, u, v, w, w_idx, vw_idx)`` as in the reference:
@@ -105,13 +107,28 @@ def _expand_close_body(src_e, dst_e, row_offsets, col, out_deg, wedge_budget, n_
     slots repeat the last edge id, as ``jnp.repeat(...,
     total_repeat_length=...)`` does; their index values are clipped-safe
     garbage and ``hit`` is false there.
+
+    ``shorter_side`` (the distributed schedule's §Perf variant) enumerates
+    each edge's candidates from the smaller of N⁺(u), N⁺(v) and searches
+    the larger; ``u`` is then the enumerated endpoint and ``v`` the
+    searched one.
     """
     dev = col.device
     m_local = src_e.shape[0]
     valid_e = src_e >= 0
     safe_src = src_e.clamp(min=0)
     safe_dst = dst_e.clamp(min=0)
-    reps = torch.where(valid_e, out_deg[safe_src], 0)
+    if shorter_side:
+        du = out_deg[safe_src]
+        dv = out_deg[safe_dst]
+        swap = dv < du
+        safe_src, safe_dst = (
+            torch.where(swap, safe_dst, safe_src),
+            torch.where(swap, safe_src, safe_dst),
+        )
+        reps = torch.where(valid_e, torch.minimum(du, dv), 0)
+    else:
+        reps = torch.where(valid_e, out_deg[safe_src], 0)
     cum = torch.cumsum(reps, 0, dtype=torch.int64)
     starts = cum - reps
     slots = torch.arange(wedge_budget, dtype=torch.int64, device=dev)

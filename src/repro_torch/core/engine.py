@@ -20,8 +20,13 @@ cube; :class:`PallasBackend` (``"pallas"``) is the same plan driving the
 hand-written CUDA kernels of :mod:`repro_torch.kernels.triangle_count`
 (the method string is the reference's, so one ``method=`` drives the same
 schedule in both packages), each chunk's kernel knobs steered by an
-optional :class:`repro_torch.core.tuning.AutoTuner` (``tuner=``).
-``"distributed"`` (and ``mesh=``) is not ported yet.
+optional :class:`repro_torch.core.tuning.AutoTuner` (``tuner=``);
+:class:`DistributedBackend` (``"distributed"``, with ``mesh=``) plans
+§III-E round-robin edge stripes over every device of a
+:class:`repro_torch.distributed.Mesh`, runs each stripe's wedge schedule on
+its device and merges the partials on the mesh's lead device
+(:mod:`repro_torch.core.distributed`).  A multi-device mesh makes
+``"auto"`` resolve to it, as in the reference.
 
 With ``REPRO_CHECK=1`` in the environment, :func:`run_workload` holds every
 chunk's int32 partial to the device-accumulator contract
@@ -47,7 +52,9 @@ import torch
 from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.check import runtime as check_runtime
-from repro_torch.distributed.compression import ensure_fits_int32
+from repro_torch.distributed.compression import can_narrow_int32, ensure_fits_int32
+from repro_torch.distributed.mesh import mesh_device
+from repro_torch.distributed.straggler import skew_disagreement_note, stripe_skew_report
 from repro_torch.kernels.triangle_count import ops as tc_ops
 from repro_torch.kernels.triangle_count.ref import panel_scatter_per_node, panel_scatter_support
 
@@ -86,6 +93,7 @@ __all__ = [
     "WedgeBackend",
     "PanelBackend",
     "PallasBackend",
+    "DistributedBackend",
     "register_backend",
     "make_backend",
     "resolve_backend",
@@ -93,10 +101,10 @@ __all__ = [
     "make_workload",
     "workload_from_csr",
     "WorkPlan",
+    "StripedChunk",
     "run_workload",
     "METHODS",
     "CAPABILITIES",
-    "NOT_PORTED",
 ]
 
 METHODS = ("auto", "wedge_bsearch", "panel", "pallas", "distributed")
@@ -104,11 +112,6 @@ METHODS = ("auto", "wedge_bsearch", "panel", "pallas", "distributed")
 CAPABILITIES = ("count", "per_node", "support")
 
 DEFAULT_WIDTHS = (16, 64, 256, 1024, 4096)
-
-NOT_PORTED = (
-    "is not yet ported to repro_torch (ROADMAP.md queue A: {item}); "
-    "use the JAX package repro for it"
-)
 
 
 def _host(x) -> np.ndarray:
@@ -182,6 +185,13 @@ class EngineStats:
     ``preprocess`` / ``plan`` / ``execute`` / ``fold`` seconds; launches
     are asynchronous, so device time bills to ``fold`` unless a tracer
     syncs each chunk.
+
+    The stripe fields describe a distributed run (``n_stripes`` is 1
+    otherwise): the wedge-load skew of its stripes and the stripe the
+    median+MAD rule flags (:func:`repro_torch.distributed.straggler.stripe_skew_report`);
+    under an active tracer also the measured seconds per stripe, their
+    skew and straggler, and ``skew_note`` (with a ``RuntimeWarning``) when
+    load and measurement disagree on the straggler.
     """
 
     method: str
@@ -192,7 +202,42 @@ class EngineStats:
     total_wedges: int
     n_directed_edges: int
     fallback_reason: str | None = None
+    n_stripes: int = 1                   # §III-E stripes (1 = single device)
+    stripe_skew: float | None = None     # max/mean stripe wedge load
+    straggler_stripe: int | None = None  # stripe flagged by the MAD rule
     timings: dict | None = None
+    stripe_times: tuple[float, ...] | None = None  # measured s/stripe (traced)
+    measured_stripe_skew: float | None = None      # max/mean measured time
+    measured_straggler_stripe: int | None = None   # MAD rule on measured times
+    skew_note: str | None = None         # load-vs-measured disagreement
+
+
+def _stripe_stats(stripe_loads, stripe_times) -> dict:
+    """The :class:`EngineStats` stripe fields from a plan's loads and times.
+
+    ``stripe_loads`` (wedge slots per stripe) gives the skew and the
+    straggler; ``stripe_times`` (seconds, traced runs) the measured ones,
+    and a note when the two flag different stripes.
+    """
+    out: dict = {}
+    load_rep = None
+    if stripe_loads is not None:
+        load_rep = stripe_skew_report(stripe_loads)
+        out.update(stripe_skew=load_rep.skew, straggler_stripe=load_rep.straggler_stripe)
+    if stripe_times:
+        # the MAD rule works on integer loads; nanoseconds keep the
+        # measured resolution through the int coercion
+        time_rep = stripe_skew_report([int(t * 1e9) for t in stripe_times])
+        out.update(stripe_times=tuple(stripe_times),
+                   measured_stripe_skew=time_rep.skew,
+                   measured_straggler_stripe=time_rep.straggler_stripe)
+        if load_rep is not None:
+            note = skew_disagreement_note(load_rep, time_rep)
+            if note is not None:
+                obs.counter("engine.skew_disagreements").add()
+                warnings.warn(note, RuntimeWarning, stacklevel=3)
+                out["skew_note"] = note
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -405,18 +450,31 @@ class PanelChunk(NamedTuple):
     width: int
 
 
+class StripedChunk(NamedTuple):
+    """One −1-padded column slice of the §III-E striped edge axis."""
+
+    src: np.ndarray   # (n_stripes, cols) round-robin striped sources
+    dst: np.ndarray
+    start: int        # starting column in the striped axis
+    buffer: int       # per-stripe wedge-buffer length
+
+
 class WorkPlan(NamedTuple):
     """A backend's chunking decision for one workload.
 
-    ``timings`` is filled in by :func:`run_workload` on the plan it
-    returns (phase → seconds).
+    ``timings`` and ``stripe_times`` are filled in by :func:`run_workload`
+    on the plan it returns: phase → seconds, and (traced distributed runs
+    only) the measured seconds per stripe.
     """
 
     chunks: Iterator
     n_chunks: int
     peak_buffer: int   # largest per-launch buffer (slots/elements)
     total_wedges: int  # Σ fan-out over the query edges
-    timings: dict | None = None
+    n_stripes: int = 1                           # §III-E stripes (distributed)
+    stripe_loads: tuple[int, ...] | None = None  # wedge slots per stripe
+    timings: dict | None = None                  # filled by run_workload
+    stripe_times: tuple[float, ...] | None = None  # filled when traced
 
 
 # ---------------------------------------------------------------------------
@@ -664,15 +722,126 @@ class PallasBackend(PanelBackend):
         return tc_ops.intersect_support(a, b)
 
 
+class DistributedBackend(KernelBackend):
+    """The §III-E striped schedule over a device mesh — every workload.
+
+    :meth:`plan` stripes the query edge list round-robin over every mesh
+    device (edge ``i`` on stripe ``i mod S``) and cuts the striped axis
+    into column chunks whose *worst stripe* obeys the wedge budget
+    (:func:`repro_torch.core.distributed.plan_striped_chunks`,
+    shorter-side-aware).  The chunk functions come from
+    :func:`repro_torch.core.distributed.striped_workload_fn`: each stripe
+    runs the wedge schedule in torch ops on its device; count returns
+    per-stripe segmented partials (host uint64 reduce), per-node sums the
+    stripes' vectors, support sums arm/closure and gathers the
+    stripe-local base over a delta-compressed uint16 wire when the graph's
+    degree bound allows (``compress=True``, the default).  Every result
+    lands on ``mesh.lead``.
+
+    All three are bit-identical to the wedge backend at any budget and any
+    stripe count.
+    """
+
+    name = "distributed"
+    capabilities = frozenset(CAPABILITIES)
+
+    def __init__(self, mesh=None, *, shorter_side: bool = False, compress: bool = True):
+        if mesh is not None:
+            mesh_device(mesh)  # type check
+        self.mesh = mesh
+        self.shorter_side = shorter_side
+        self.compress = compress
+        self.n_shards = int(np.prod(mesh.devices.shape)) if mesh is not None else 0
+        self._adj_src = None
+        self._adj_dev = None
+        self._adj_bound = 0
+
+    def _require_mesh(self):
+        if self.mesh is None:
+            raise ValueError(
+                "the distributed backend needs a repro_torch.distributed.Mesh; "
+                "construct it via make_backend('distributed', mesh=...) or "
+                "TriangleCounter(method='distributed', mesh=...)"
+            )
+
+    def plan(self, work: Workload, budget: int | None, *, bucket_pow2: bool = False) -> WorkPlan:
+        from .distributed import iter_striped_chunks, plan_striped_chunks, stripe_arrays
+
+        self._require_mesh()
+        src_sh, dst_sh, loads = stripe_arrays(
+            work.src_host, work.dst_host, work.deg_host, self.n_shards,
+            shorter_side=self.shorter_side, min_cols=1,
+        )
+        bounds, eff = plan_striped_chunks(
+            src_sh, work.deg_host, budget, dst_sh=dst_sh if self.shorter_side else None
+        )
+        cols_per_chunk = max(end - start for start, end in bounds)
+        if bucket_pow2:
+            eff = next_pow2(eff)
+            cols_per_chunk = next_pow2(cols_per_chunk)
+        chunks = (
+            StripedChunk(s, d, start, eff)
+            for start, s, d in iter_striped_chunks(src_sh, dst_sh, bounds, cols_per_chunk)
+        )
+        return WorkPlan(
+            chunks, len(bounds), eff, int(loads.sum()),
+            n_stripes=self.n_shards, stripe_loads=tuple(int(x) for x in loads),
+        )
+
+    # -- chunk launch plumbing ---------------------------------------------
+
+    def _device_adj(self, adj: _DeviceAdj):
+        """Replicate the adjacency to each distinct device once per workload.
+
+        The cache holds the source tensors themselves (compared by
+        identity), so a later workload's new tensors never match it.
+        """
+        src = (adj.row_offsets, adj.col, adj.out_degree)
+        if self._adj_src is None or any(a is not b for a, b in zip(self._adj_src, src)):
+            self._adj_dev = tuple(self.mesh.replicate(a) for a in src)
+            deg = adj.out_degree
+            self._adj_bound = int(deg.max()) if deg.numel() else 0
+            self._adj_src = src
+        return self._adj_dev
+
+    def _launch(self, kind: str, adj: _DeviceAdj, chunk: StripedChunk, n_out: int):
+        from .distributed import striped_workload_fn
+
+        self._require_mesh()
+        row, col, deg = self._device_adj(adj)
+        narrow = kind == "support" and self.compress and can_narrow_int32(self._adj_bound)
+        fn = striped_workload_fn(
+            self.mesh, kind, chunk.buffer, adj.n_steps,
+            n_out=n_out, shorter_side=self.shorter_side, narrow_wire=narrow,
+        )
+        return fn(chunk.src, chunk.dst, chunk.start, row, col, deg)
+
+    def count_chunk(self, adj, chunk):
+        return self._launch("count", adj, chunk, 0)
+
+    def per_node_chunk(self, adj, chunk, n_out):
+        return self._launch("per_node", adj, chunk, n_out)
+
+    def support_chunk(self, adj, chunk, m_out):
+        if m_out != int(adj.col.shape[0]):
+            raise ValueError(
+                f"distributed support needs the query list aligned with the "
+                f"adjacency edge list (m_out={m_out} != |col|={int(adj.col.shape[0])})"
+            )
+        return self._launch("support", adj, chunk, m_out)
+
+
 _BACKEND_FACTORIES: dict[str, object] = {}
 
 
 def register_backend(name: str, factory) -> None:
     """Register a backend factory under ``name``.
 
-    The factory is called as ``factory(widths=..., tuner=...)`` and must
-    return a :class:`KernelBackend`; accept ``**_`` for unused knobs.  A
-    registered name is directly usable as ``TriangleCounter(method=name)``.
+    The factory is called with keyword arguments
+    ``factory(widths=..., tuner=..., mesh=..., shorter_side=...)`` and must
+    return a :class:`KernelBackend`; accept ``**_`` for the knobs the
+    backend does not use.  A registered name is directly usable as
+    ``TriangleCounter(method=name)``.
     """
     _BACKEND_FACTORIES[name] = factory
 
@@ -682,12 +851,14 @@ register_backend("panel", lambda widths=DEFAULT_WIDTHS, tuner=None, **_: PanelBa
     widths=widths, tuner=tuner))
 register_backend("pallas", lambda widths=DEFAULT_WIDTHS, tuner=None, **_: PallasBackend(
     widths=widths, tuner=tuner))
+register_backend("distributed", lambda mesh=None, shorter_side=False, **_: DistributedBackend(
+    mesh, shorter_side=shorter_side))
 
 
-def make_backend(name: str, *, widths=DEFAULT_WIDTHS, tuner=None) -> KernelBackend:
+def make_backend(
+    name: str, *, widths=DEFAULT_WIDTHS, tuner=None, mesh=None, shorter_side: bool = False
+) -> KernelBackend:
     """Instantiate the backend registered under ``name``."""
-    if name == "distributed":
-        raise NotImplementedError("the 'distributed' backend " + NOT_PORTED.format(item="Distributed"))
     try:
         factory = _BACKEND_FACTORIES[name]
     except KeyError:
@@ -695,26 +866,43 @@ def make_backend(name: str, *, widths=DEFAULT_WIDTHS, tuner=None) -> KernelBacke
             f"unknown kernel backend {name!r}; registered: "
             f"{sorted(_BACKEND_FACTORIES)}"
         ) from None
-    return factory(widths=widths, tuner=tuner)
+    return factory(widths=widths, tuner=tuner, mesh=mesh, shorter_side=shorter_side)
 
 
 _warned_fallbacks: set = set()
 
 
-def resolve_backend(method: str, kind: str, *, widths=DEFAULT_WIDTHS, tuner=None):
+def resolve_backend(
+    method: str,
+    kind: str,
+    *,
+    widths=DEFAULT_WIDTHS,
+    tuner=None,
+    mesh=None,
+    shorter_side: bool = False,
+):
     """Pick the backend for (schedule, workload) by capability.
 
     Returns ``(backend, executed_name, fallback_reason)``.  When the
-    requested backend lacks ``kind`` the wedge backend substitutes and the
+    requested backend lacks ``kind`` — or the distributed schedule is
+    requested without a mesh — the wedge backend substitutes and the
     reason is returned (plus a one-time ``RuntimeWarning`` per
     (method, kind) pair per process).
     """
     if kind not in CAPABILITIES:
         raise ValueError(f"unknown workload kind {kind!r}; expected one of {CAPABILITIES}")
-    backend = make_backend(method, widths=widths, tuner=tuner)
-    if kind in backend.capabilities:
-        return backend, method, None
-    reason = f"backend {method!r} has no {kind!r} kernel; fell back to 'wedge_bsearch'"
+    if method == "distributed" and mesh is None:
+        reason = (
+            "backend 'distributed' needs a mesh and none was configured; "
+            "fell back to 'wedge_bsearch'"
+        )
+    else:
+        backend = make_backend(
+            method, widths=widths, tuner=tuner, mesh=mesh, shorter_side=shorter_side
+        )
+        if kind in backend.capabilities:
+            return backend, method, None
+        reason = f"backend {method!r} has no {kind!r} kernel; fell back to 'wedge_bsearch'"
     obs.counter("engine.capability_fallbacks").add()
     key = (method, kind)
     if key not in _warned_fallbacks:
@@ -741,11 +929,14 @@ def run_workload(
     for ``"per_node"``, int64 per-query-edge for ``"support"``, and the
     plan with its launch stats and phase ``timings``.  Partials stay on
     the device until one fold after the last launch, so launches are not
-    serialized by host reads.  Under an active :mod:`repro_torch.obs`
-    tracer each chunk launch gets a span that syncs before it closes.
-    With ``REPRO_CHECK=1`` each chunk's partial goes through
-    :func:`repro_torch.check.runtime.check_partial` before the fold (one
-    read of its min and max per chunk).
+    serialized by host reads; a distributed backend's partials and the
+    fold lie on its mesh's lead device.  Under an active
+    :mod:`repro_torch.obs` tracer each chunk launch gets a span that syncs
+    before it closes, and §III-E striped chunks get a per-stripe timing
+    probe (:func:`_probe_stripe_times`) whose sums fill the returned
+    plan's ``stripe_times``.  With ``REPRO_CHECK=1`` each chunk's partial
+    goes through :func:`repro_torch.check.runtime.check_partial` before
+    the fold (one read of its min and max per chunk).
     """
     if kind not in CAPABILITIES:
         raise ValueError(f"unknown workload kind {kind!r}")
@@ -760,14 +951,23 @@ def run_workload(
     obs.counter("engine.chunks_launched").add(plan.n_chunks)
     obs.gauge("engine.peak_wedge_buffer").set(plan.peak_buffer)
 
+    stripe_acc: list | None = None
+
     def launch(fn, chunk, i, *extra):
         """One chunk launch, span-wrapped (and synced) when tracing."""
+        nonlocal stripe_acc
         if trc is None:
             return fn(adj, chunk, *extra)
         with trc.span(f"{kind}.chunk", cat="engine",
                       args={"chunk": i,
                             "buffer": int(getattr(chunk, "buffer", 0))}) as sp:
-            return sp.sync(fn(adj, chunk, *extra))
+            part = sp.sync(fn(adj, chunk, *extra))
+        if isinstance(chunk, StripedChunk):
+            times = _probe_stripe_times(trc, backend, adj, chunk)
+            stripe_acc = [0.0] * len(times) if stripe_acc is None else stripe_acc
+            for s, dt in enumerate(times):
+                stripe_acc[s] += dt
+        return part
 
     t0 = time.perf_counter()
     if kind == "count":
@@ -786,7 +986,8 @@ def run_workload(
         else:
             n = int(work.src_host.shape[0])
             fn = backend.support_chunk
-        acc = torch.zeros((n,), dtype=torch.int64, device=adj.device)
+        lead = backend.mesh.lead if isinstance(backend, DistributedBackend) else adj.device
+        acc = torch.zeros((n,), dtype=torch.int64, device=lead)
         for i, chunk in enumerate(plan.chunks):
             part = launch(fn, chunk, i, n)
             if san is not None:
@@ -796,7 +997,44 @@ def run_workload(
         t0 = time.perf_counter()
         value = acc.cpu().numpy()
     timings["fold"] = time.perf_counter() - t0
-    return value, plan._replace(timings=timings)
+    return value, plan._replace(
+        timings=timings, stripe_times=tuple(stripe_acc) if stripe_acc else None
+    )
+
+
+def _probe_stripe_times(trc, backend, adj: _DeviceAdj, chunk: StripedChunk) -> list[float]:
+    """Measured seconds per stripe for one §III-E striped chunk.
+
+    The stripes of a chunk are launched back to back and only their merge
+    is synced, so one stripe is not observable from the host.  Under
+    tracing the wedge-count kernel is therefore run again over each
+    stripe's −1-padded edge slice on the stripe's device, synced, and
+    those wall times are reported beside the load-inferred skew.  One
+    warm-up launch keeps first-use costs out of the timed region.  Costs
+    roughly one extra pass over the chunk, paid only while a tracer is
+    active.
+    """
+    row, col, deg = backend._device_adj(adj)
+    devices = list(backend.mesh.devices.flat)
+
+    def run(s):
+        dev = devices[s]
+        out = chunk_count_kernel(
+            torch.from_numpy(chunk.src[s]).to(dev), torch.from_numpy(chunk.dst[s]).to(dev),
+            row[dev], col[dev], deg[dev], wedge_budget=chunk.buffer, n_steps=adj.n_steps,
+        )
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return out
+
+    run(0)
+    times = []
+    for s in range(len(devices)):
+        t0 = time.perf_counter()
+        with trc.span("stripe.probe", cat="engine.stripes", args={"stripe": s}):
+            run(s)
+        times.append(time.perf_counter() - t0)
+    return times
 
 
 def iter_wedge_chunks(csr: OrientedCSR, max_wedge_chunk: int | None, *, bucket_pow2: bool = False):
@@ -824,17 +1062,23 @@ def choose_method(
     *,
     max_out_degree: int,
     mean_out_degree: float,
+    mesh=None,
     widths: tuple[int, ...] = DEFAULT_WIDTHS,
     backend: str = "cpu",
 ) -> str:
     """Pick a counting schedule from graph statistics (§III-C skew logic).
 
+    * a mesh of more than one stripe always wins — the §III-E striping is
+      exact regardless of skew (a mesh that repeats a device counts its
+      stripes, as the reference's simulated mesh does);
     * on a CUDA device, panels that fit the largest bucket go to the
       hand-written kernel (``"pallas"``) — the counterpart of the
       reference's TPU test;
     * low degree + low skew favors the plain panel schedule;
     * heavy tails favor ``wedge_bsearch``, immune to padding waste.
     """
+    if mesh is not None and int(np.prod(mesh.devices.shape)) > 1:
+        return "distributed"
     skew = max_out_degree / max(mean_out_degree, 1e-9)
     if backend == "cuda" and max_out_degree <= widths[-1]:
         return "pallas"
@@ -843,7 +1087,9 @@ def choose_method(
     return "wedge_bsearch"
 
 
-def resolve_method(method: str, out_degree, *, widths=DEFAULT_WIDTHS, backend: str = "cpu") -> str:
+def resolve_method(
+    method: str, out_degree, *, mesh=None, widths=DEFAULT_WIDTHS, backend: str = "cpu"
+) -> str:
     """Resolve ``"auto"`` against an out-degree histogram (never "auto").
 
     ``backend`` is the device type the counter runs on (``"cuda"`` or
@@ -855,7 +1101,8 @@ def resolve_method(method: str, out_degree, *, widths=DEFAULT_WIDTHS, backend: s
     max_deg = int(out_deg.max()) if out_deg.size else 0
     mean_deg = float(out_deg.mean()) if out_deg.size else 0.0
     return choose_method(
-        max_out_degree=max_deg, mean_out_degree=mean_deg, widths=widths, backend=backend
+        max_out_degree=max_deg, mean_out_degree=mean_deg, mesh=mesh, widths=widths,
+        backend=backend,
     )
 
 
@@ -870,8 +1117,8 @@ class TriangleCounter:
     Parameters
     ----------
     method:
-        One of ``"auto"``, ``"wedge_bsearch"``, ``"panel"``, ``"pallas"``
-        (``"distributed"`` raises: not yet ported).
+        One of ``"auto"``, ``"wedge_bsearch"``, ``"panel"``, ``"pallas"``,
+        ``"distributed"``.
     max_wedge_chunk:
         Wedge-buffer budget per launch (slots).  ``None`` runs a single
         full-size launch.
@@ -882,10 +1129,16 @@ class TriangleCounter:
         CSR kernels' rows per block and lanes per row from its per-shape
         grid-search cache.
     mesh:
-        Not ported yet (queue A: Distributed); raises when given.
+        A :class:`repro_torch.distributed.Mesh` for the distributed
+        schedule (required when ``method="distributed"``; a mesh of more
+        than one stripe makes ``"auto"`` resolve to it).  The counter then
+        runs on the mesh's lead device.
+    shorter_side:
+        Distributed only — enumerate wedge candidates from the smaller
+        endpoint list (the §Perf variant).
     device:
         ``None`` or ``"cuda"`` (the default: raises without a card) or
-        ``"cpu"``.
+        ``"cpu"``; with a mesh, ``None`` or its lead device.
 
     After any call, :attr:`last_stats` holds an :class:`EngineStats`.
     """
@@ -898,23 +1151,24 @@ class TriangleCounter:
         *,
         tuner=None,
         mesh=None,
+        shorter_side: bool = False,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("TriangleCounter(mesh=) " + NOT_PORTED.format(item="Distributed"))
-        if method == "distributed":
-            raise NotImplementedError("method='distributed' " + NOT_PORTED.format(item="Distributed"))
         if method not in METHODS and method not in _BACKEND_FACTORIES:
             raise ValueError(
                 f"unknown method {method!r}; expected one of {METHODS} "
                 f"or a registered backend ({sorted(_BACKEND_FACTORIES)})"
             )
+        if method == "distributed" and mesh is None:
+            raise ValueError("method='distributed' requires a mesh")
         if max_wedge_chunk is not None and max_wedge_chunk < 1:
             raise ValueError("max_wedge_chunk must be positive")
-        self.device = resolve_device(device)
+        self.device = mesh_device(mesh, device)
         self.method = method
         self.max_wedge_chunk = max_wedge_chunk
         self.widths = tuple(widths)
+        self.mesh = mesh
+        self.shorter_side = shorter_side
         self.tuner = tuner
         self.last_stats: EngineStats | None = None
 
@@ -1004,13 +1258,15 @@ class TriangleCounter:
 
     def _resolve(self, csr: OrientedCSR) -> str:
         return resolve_method(
-            self.method, csr.out_degree, widths=self.widths, backend=self.device.type
+            self.method, csr.out_degree, mesh=self.mesh, widths=self.widths,
+            backend=self.device.type,
         )
 
     def _run(self, csr: OrientedCSR, kind: str, resolved: str, prep_s: float = 0.0):
         """Dispatch one workload through the capability-resolved backend."""
         backend, executed, reason = resolve_backend(
-            resolved, kind, widths=self.widths, tuner=self.tuner
+            resolved, kind, widths=self.widths, tuner=self.tuner,
+            mesh=self.mesh, shorter_side=self.shorter_side,
         )
         value, plan = run_workload(
             backend, kind, workload_from_csr(csr),
@@ -1026,6 +1282,8 @@ class TriangleCounter:
             total_wedges=plan.total_wedges,
             n_directed_edges=csr.n_directed_edges,
             fallback_reason=reason,
+            n_stripes=plan.n_stripes,
             timings={"preprocess": prep_s, **(plan.timings or {})},
+            **_stripe_stats(plan.stripe_loads, plan.stripe_times),
         )
         return value

@@ -40,7 +40,9 @@ configured backend's per-node chunk kernel under ``max_wedge_chunk``.
 Each hit scatters +1 to exactly three vertices, so the hit total is
 ``Σ per_node / 3`` from the same launch.  ``"pallas"`` probes run the
 per-node CSR kernel of :mod:`repro_torch.kernels.triangle_count` once per
-chunk; ``"wedge_bsearch"`` probes run the torch-ops wedge expansion.
+chunk; ``"wedge_bsearch"`` probes run the torch-ops wedge expansion;
+``"distributed"`` probes stripe the delta workload over a ``mesh=``
+(§III-E) and sum the stripes' per-node partials on its lead device.
 
 Where the state lives
 =====================
@@ -70,12 +72,11 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch._device import resolve_device
 from repro_torch.distributed.compression import ensure_fits_int32
+from repro_torch.distributed.mesh import mesh_device
 from repro_torch.graphs.formats import sorted_unique, validate_node_ids
 
 from .engine import (
-    NOT_PORTED,
     TriangleCounter,
     WedgeChunk,
     _DeviceAdj,
@@ -89,8 +90,7 @@ from .engine import (
 __all__ = ["IncrementalTriangleCounter", "UpdateStats"]
 
 # schedules the probe passes can execute; anything else ("auto") keeps
-# the wedge chunk kernels, as in the reference.  "distributed" is not
-# ported yet and raises.
+# the wedge chunk kernels, as in the reference
 _PROBE_METHODS = ("wedge_bsearch", "panel", "pallas", "distributed")
 
 _MASK32 = np.int64(0xFFFFFFFF)
@@ -100,10 +100,6 @@ _COL_PAD = np.int32(2**31 - 1)  # sorted-tail sentinel; never inside a row
 def _pack(u: np.ndarray, v: np.ndarray) -> np.ndarray:
     """Directed edge key u<<32|v (the §III-D2 packed-key representation)."""
     return u.astype(np.int64) << np.int64(32) | v.astype(np.int64)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(what + " " + NOT_PORTED.format(item="Distributed"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,14 +134,19 @@ class IncrementalTriangleCounter:
     method:
         Engine schedule for the bootstrap count and — when it names one
         of the probe-capable backends (``"wedge_bsearch"``, ``"panel"``,
-        ``"pallas"``) — for the three probe passes of every update batch
-        as well.  ``"auto"`` keeps the probes on the wedge schedule.
-        ``"distributed"`` raises: not yet ported.
+        ``"pallas"``, ``"distributed"``) — for the three probe passes of
+        every update batch as well.  ``"auto"`` keeps the probes on the
+        wedge schedule.
     mesh:
-        Must be ``None``: the striped probes are not yet ported.
+        A :class:`repro_torch.distributed.Mesh` for ``method="distributed"``
+        (required then; otherwise it reaches only the bootstrap count, as
+        in the reference): each probe pass stripes the delta workload
+        §III-E-style over it and sums the per-node partials — bit-identical
+        to the single-device probes.
     device:
         ``None`` or ``"cuda"`` (the default: raises without a card) or
-        ``"cpu"``: where the bootstrap and the probes run.
+        ``"cpu"``: where the bootstrap and the probes run; with a mesh,
+        ``None`` or its lead device.
 
     After any update, :attr:`last_update_stats` describes what ran.
 
@@ -166,15 +167,16 @@ class IncrementalTriangleCounter:
     ):
         if max_wedge_chunk is not None and max_wedge_chunk < 1:
             raise ValueError("max_wedge_chunk must be positive")
-        if method == "distributed":
-            raise _not_ported("method='distributed'")
-        if mesh is not None:
-            raise _not_ported("mesh=")
-        self.device = resolve_device(device)
+        if method == "distributed" and mesh is None:
+            raise ValueError(
+                "method='distributed' needs a mesh= over the participating "
+                "devices"
+            )
+        self.device = mesh_device(mesh, device)
         self.max_wedge_chunk = max_wedge_chunk
         self.mesh = mesh
         self.probe_method = method if method in _PROBE_METHODS else "wedge_bsearch"
-        self._backend = make_backend(self.probe_method)
+        self._backend = make_backend(self.probe_method, mesh=mesh)
         self._n = int(n_nodes) if n_nodes else 0
         self._adj = np.empty(0, np.int64)  # sorted directed keys, both dirs
         self._count = 0
@@ -199,7 +201,8 @@ class IncrementalTriangleCounter:
                 np.add.at(self._deg, und[:, 0], 1)
                 np.add.at(self._deg, und[:, 1], 1)
                 tc = TriangleCounter(
-                    method=method, max_wedge_chunk=max_wedge_chunk, device=self.device
+                    method=method, max_wedge_chunk=max_wedge_chunk, mesh=mesh,
+                    device=self.device,
                 )
                 canon = self.current_edges()
                 self._count = tc.count(canon, n_nodes=self._n)
@@ -480,8 +483,9 @@ class IncrementalTriangleCounter:
         if col_pad > m_valid:
             col = np.concatenate([col, np.full(col_pad - m_valid, _COL_PAD)])
         if self.probe_method != "wedge_bsearch":
-            # panel/pallas probe: the backend buckets the probe pairs itself
-            # and pow2-pads its slices; each chunk is one kernel launch
+            # panel/pallas/distributed probe: the backend buckets (or
+            # stripes) the probe pairs itself and pow2-pads its launch
+            # shapes; a pallas chunk is one kernel launch
             work = make_workload(row, col, deg, eu, ev, device=self.device)
             per_node, plan = run_workload(
                 self._backend, "per_node", work,

@@ -14,7 +14,9 @@ preprocesses the graph once
 (:func:`repro_torch.analytics.metrics.graph_report`): count, per-node
 clustering, per-edge support and the truss peel all consume one
 ``OrientedCSR`` on ``--device`` (default ``cuda``; without a card the CLI
-exits unless it is given ``--device cpu``).
+exits unless it is given ``--device cpu``).  ``--method distributed``
+(which the reference's analyze CLI does not offer) runs every stage on
+the §III-E stripes of a mesh of the visible devices of ``--device``.
 
 ``--json`` prints one machine-readable object on stdout (triangles,
 transitivity, clustering profile, support top-k, truss spectrum, engine
@@ -31,10 +33,11 @@ import time
 from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.analytics import graph_report
-from repro_torch.core.engine import METHODS, NOT_PORTED
+from repro_torch.core.engine import METHODS
 from repro_torch.launch.count import (
     add_source_arguments,
     add_trace_argument,
+    mesh_from_args,
     resolve_graph,
 )
 
@@ -67,8 +70,6 @@ def main() -> None:
         ap.error("--max-wedge-chunk must be a positive number of wedge slots")
     if args.top_k < 0:
         ap.error("--top-k must be non-negative")
-    if args.method == "distributed":
-        ap.error("--method distributed " + NOT_PORTED.format(item="Distributed"))
     try:
         resolve_device(args.device)  # before any ingest: no card, no run
     except RuntimeError as e:
@@ -87,12 +88,14 @@ def _run_analyze(args, log) -> None:
         graph, info = resolve_graph(args, log=log)
     build_s = time.time() - t0
 
+    mesh = mesh_from_args(args, log)
     report = graph_report(
         graph,
         method=args.method,
         max_wedge_chunk=args.max_wedge_chunk,
         include_truss=not args.no_truss,
         top_k=args.top_k,
+        mesh=mesh,
         device=args.device,
     )
     report["source"] = {k: v for k, v in info.items() if k != "graph"}

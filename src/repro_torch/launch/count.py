@@ -7,6 +7,7 @@
     python -m repro_torch.launch.count --scale 14 --method panel
     python -m repro_torch.launch.count --input tests/data/karate.txt --json
     python -m repro_torch.launch.count --input tests/data/karate.txt --device cpu
+    python -m repro_torch.launch.count --scale 12 --distributed             # §III-E stripes
 
 All counting routes through :class:`repro_torch.core.TriangleCounter` on
 ``--device`` (default ``cuda``; without a card the CLI raises unless it
@@ -17,7 +18,9 @@ partitioning) and ``--max-chunk-edges`` bounds host memory during
 parsing/canonicalization.  ``--json`` prints one machine-readable object
 on stdout (count, schedule, engine stats, ingest provenance, timings) and
 moves the human-readable progress lines to stderr — benchmarks and CI
-smokes should consume that instead of scraping text.
+smokes should consume that instead of scraping text.  ``--distributed``
+runs the §III-E striped schedule over a mesh of the visible devices of
+``--device`` (one stripe a card; the CPU is one device).
 """
 from __future__ import annotations
 
@@ -32,9 +35,21 @@ import numpy as np
 from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.core import TriangleCounter, count_triangles_numpy
-from repro_torch.core.engine import METHODS, NOT_PORTED
+from repro_torch.core.engine import METHODS
 from repro_torch.graphs import GRAPH_GENERATORS, graph_stats
 from repro_torch.graphs.io import DATASETS, ingest, materialize_dataset
+
+
+def mesh_from_args(args, log):
+    """The CLI's mesh for ``--method distributed`` (None otherwise), logged."""
+    if args.method != "distributed":
+        return None
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(device=args.device)
+    log(f"mesh: {mesh.size} stripe(s) on {len(mesh.distinct)} device(s), "
+        f"axes {mesh.shape}")
+    return mesh
 
 
 def add_trace_argument(ap: argparse.ArgumentParser) -> None:
@@ -193,8 +208,7 @@ def main() -> None:
                          "--tile-cache (paper §III-D5 sweep) and persist "
                          "the winners")
     ap.add_argument("--baseline", action="store_true", help="also run NumPy CPU baseline")
-    ap.add_argument("--distributed", action="store_true",
-                    help="not yet ported (§III-E striping, ROADMAP queue A)")
+    ap.add_argument("--distributed", action="store_true", help="shard over local devices")
     ap.add_argument("--clustering", action="store_true",
                     help="deprecated spelling of --transitivity")
     ap.add_argument("--transitivity", action="store_true",
@@ -211,9 +225,13 @@ def main() -> None:
     args = ap.parse_args()
     if args.max_wedge_chunk is not None and args.max_wedge_chunk < 1:
         ap.error("--max-wedge-chunk must be a positive number of wedge slots")
-    if args.distributed or args.method == "distributed":
-        ap.error("--distributed / --method distributed " + NOT_PORTED.format(item="Distributed"))
-    if args.method is None:
+    if args.distributed:
+        if args.method not in (None, "auto", "distributed"):
+            ap.error(f"--distributed conflicts with --method {args.method}; "
+                     "drop one of the two (--distributed runs the §III-E "
+                     "striped schedule over all local devices)")
+        args.method = "distributed"
+    elif args.method is None:
         args.method = "auto"
     try:
         resolve_device(args.device)  # before any ingest: no card, no run
@@ -233,13 +251,14 @@ def _run_count(args, log) -> None:
         graph, info = resolve_graph(args, log=log)
     build_s = time.time() - t_build0
 
+    mesh = mesh_from_args(args, log)
     tuner = None
     if args.tile_cache is not None or args.autotune:
         from repro_torch.core.tuning import AutoTuner
 
         tuner = AutoTuner(args.tile_cache, tune_on_miss=args.autotune, device=args.device)
     tc = TriangleCounter(method=args.method, max_wedge_chunk=args.max_wedge_chunk,
-                         tuner=tuner, device=args.device)
+                         tuner=tuner, mesh=mesh, device=args.device)
     count_input = graph
     if args.clustering_summary:
         # normalize to an OrientedCSR once up front so the count and the
@@ -259,6 +278,9 @@ def _run_count(args, log) -> None:
         f"{es.n_chunks} chunk(s), peak wedge buffer {es.peak_wedge_buffer})")
     if es.fallback_reason:
         log(f"note: {es.fallback_reason}")
+    if mesh is not None:
+        log(f"stripes: {es.n_stripes}, wedge-load skew {es.stripe_skew}, "
+            f"straggler stripe {es.straggler_stripe}")
     if tuner is not None:
         log(f"tile cache: {tuner.n_hits} hit(s), {tuner.n_tuned} shape(s) tuned")
 

@@ -29,7 +29,8 @@ Snapshots use the reference's format, so either package resumes the
 other's.  Unless ``--no-verify`` is given, the final maintained count is
 checked against a from-scratch ``TriangleCounter`` recount of the live
 edge set on the same device, and the process exits non-zero on any
-mismatch.  ``--method distributed`` is not yet ported.
+mismatch.  ``--method distributed`` stripes the bootstrap and every
+probe §III-E-style over a mesh of the visible devices of ``--device``.
 """
 from __future__ import annotations
 
@@ -41,7 +42,6 @@ import sys
 from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.core import TriangleCounter
-from repro_torch.core.engine import NOT_PORTED
 from repro_torch.graphs import STREAM_GENERATORS
 from repro_torch.launch.count import (
     add_source_arguments,
@@ -75,7 +75,8 @@ def main() -> None:
                          "update probes (auto keeps probes on the wedge "
                          "schedule; panel routes them through the panel "
                          "backend, pallas through the CUDA kernels; "
-                         "distributed is not yet ported)")
+                         "distributed stripes them §III-E-style over a mesh "
+                         "of all local devices)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the counter runs (default: %(default)s; "
                          "raises when no card is visible)")
@@ -123,8 +124,6 @@ def main() -> None:
         ap.error("--keep-snapshots must be positive")
     if args.resume and args.snapshot_dir is None:
         ap.error("--resume requires --snapshot-dir")
-    if args.method == "distributed":
-        ap.error("--method distributed " + NOT_PORTED.format(item="Distributed"))
     try:
         resolve_device(args.device)  # before any ingest: no card, no run
     except RuntimeError as e:
@@ -138,6 +137,15 @@ def main() -> None:
 
 
 def _run_serve(args, log) -> None:
+    mesh = None
+    if args.method == "distributed":
+        from repro_torch.distributed import Mesh
+        from repro_torch.launch.mesh import make_local_mesh
+
+        devs = list(make_local_mesh(device=args.device).devices.flat)
+        mesh = Mesh(devs, ("edges",))
+        log(f"mesh: {len(devs)} device(s) striped on axis 'edges'")
+
     with obs.span("ingest", cat="io"):
         graph, info = resolve_graph(args, log=log)
     # streams consume edge arrays; a cached CSR seed materializes one
@@ -166,6 +174,7 @@ def _run_serve(args, log) -> None:
                 "serve_graph",
                 max_wedge_chunk=args.max_wedge_chunk,
                 method=args.method,
+                mesh=mesh,
                 device=args.device,
             )
             if hit is not None:
@@ -193,6 +202,7 @@ def _run_serve(args, log) -> None:
             queries_per_batch=args.queries_per_batch,
             max_wedge_chunk=args.max_wedge_chunk,
             method=args.method,
+            mesh=mesh,
             report_every=args.report_every,
             window_intervals=args.latency_window,
             metrics_sink=sink,
@@ -226,7 +236,8 @@ def _run_serve(args, log) -> None:
     verified = None
     if not args.no_verify:
         tc = TriangleCounter(
-            method=args.method, max_wedge_chunk=args.max_wedge_chunk, device=args.device
+            method=args.method, max_wedge_chunk=args.max_wedge_chunk, mesh=mesh,
+            device=args.device,
         )
         expect = tc.count(counter.current_edges(), n_nodes=counter.n_nodes)
         if counter.count != expect:

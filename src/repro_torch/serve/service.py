@@ -1,11 +1,11 @@
 """GraphService: admission, lane dispatchers, and fused query execution.
 
 The PyTorch counterpart of ``repro.serve.service``: the same names,
-classes, lanes and fusion rules, plus ``device=`` (``None``: the card,
-raising without one), which every lane's engine, truss peel and stream
-session runs on.  The three lanes are threads that launch on the same
-card; the kernels' launch counts are kept under a lock, so a run's
-launches add up across lanes.
+classes, lanes and fusion rules (``mesh=`` included), plus ``device=``
+(``None``: the card, raising without one), which every lane's engine,
+truss peel and stream session runs on.  The three lanes are threads
+that launch on the same card; the kernels' launch counts are kept under
+a lock, so a run's launches add up across lanes.
 
 The multi-tenant front door.  Clients :meth:`~GraphService.submit`
 requests against attached graphs (static ``.tricsr``-backed tenants) or
@@ -45,8 +45,8 @@ import time
 import numpy as np
 
 from repro_torch import obs
-from repro_torch._device import resolve_device
-from repro_torch.core.engine import NOT_PORTED, TriangleCounter, degree_histogram
+from repro_torch.core.engine import TriangleCounter, degree_histogram
+from repro_torch.distributed.mesh import mesh_device
 
 from .admission import (
     AdmissionQueue,
@@ -112,10 +112,13 @@ class GraphService:
         :class:`TriangleCounter` (engine stats are per-instance mutable
         state) but all of them share the manager's tuner/tile cache.
     mesh:
-        Not ported yet (ROADMAP A6); raises when given.
+        A :class:`repro_torch.distributed.Mesh` handed to every lane's
+        engine, truss peel and session counter, so ``method="distributed"``
+        (or ``"auto"`` over a mesh of more than one stripe) serves every
+        query on the §III-E stripes.
     device:
         Where every lane's engine, truss peel and session counter run
-        (``None``: the card).  A ``cache_dir`` string builds a manager on
+        (``None``: the card; with a mesh, its lead device).  A ``cache_dir`` string builds a manager on
         the same device; a given manager's tuner must measure there.
     start:
         ``False`` defers dispatcher threads — requests queue but nothing
@@ -134,9 +137,7 @@ class GraphService:
         start: bool = True,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("GraphService(mesh=) " + NOT_PORTED.format(item="A6"))
-        self.device = resolve_device(device)
+        self.device = mesh_device(mesh, device)
         if not isinstance(manager, GraphManager):
             manager = GraphManager(manager, device=self.device)
         if manager.tuner.device != self.device:
@@ -152,6 +153,7 @@ class GraphService:
         self.queue = AdmissionQueue(merged)
         self.method = method
         self.max_wedge_chunk = max_wedge_chunk
+        self.mesh = mesh
         self._sessions: dict[str, StreamSession] = {}
         self._sessions_lock = threading.Lock()
         self._threads: list[threading.Thread] = []
@@ -165,6 +167,7 @@ class GraphService:
             method=self.method,
             max_wedge_chunk=self.max_wedge_chunk,
             tuner=self.manager.tuner,
+            mesh=self.mesh,
             device=self.device,
         )
 
@@ -234,6 +237,7 @@ class GraphService:
                     name,
                     max_wedge_chunk=self.max_wedge_chunk,
                     method=self.method,
+                    mesh=self.mesh,
                     device=self.device,
                 )
                 if hit is not None:
@@ -244,6 +248,7 @@ class GraphService:
                     n_nodes=n_nodes,
                     max_wedge_chunk=self.max_wedge_chunk,
                     method=self.method,
+                    mesh=self.mesh,
                     device=self.device,
                 )
             self._sessions[name] = session
@@ -392,6 +397,7 @@ class GraphService:
                     csr,
                     max_wedge_chunk=self.max_wedge_chunk,
                     method=self.method,
+                    mesh=self.mesh,
                     device=self.device,
                 )
                 obs.counter("serve.engine_passes").add()
@@ -450,6 +456,7 @@ class GraphService:
                     edges, n_nodes,
                     max_wedge_chunk=self.max_wedge_chunk,
                     method=self.method,
+                    mesh=self.mesh,
                     device=self.device,
                 )
                 obs.counter("serve.engine_passes").add()

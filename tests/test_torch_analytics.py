@@ -191,10 +191,12 @@ def test_support_on_arrays_empty_and_not_ported():
     assert run.support.shape == (0,) and run.n_chunks == 0
     arrays = (np.array([0, 1, 1], np.int32), np.array([0], np.int32),
               np.array([1], np.int32), np.array([1, 0], np.int32))
-    for kw, item in ((dict(mesh=object()), "Distributed"),
-                     (dict(shorter_side=True), "Distributed")):
-        with pytest.raises(NotImplementedError, match=item):
-            an.support_on_arrays(*arrays, device="cpu", **kw)
+    # mesh= and shorter_side= are ported: a mesh of the wrong type raises,
+    # shorter_side on the wedge backend is ignored as in the reference
+    with pytest.raises(TypeError, match="Mesh"):
+        an.support_on_arrays(*arrays, device="cpu", mesh=object())
+    run = an.support_on_arrays(*arrays, device="cpu", shorter_side=True)
+    assert run.support.tolist() == [0] and run.method == "wedge_bsearch"
     # the tuner is ported (core/tuning.py): a wedge run never asks it
     run = an.support_on_arrays(*arrays, device="cpu", tuner=object())
     assert run.support.tolist() == [0] and run.method == "wedge_bsearch"
@@ -208,7 +210,9 @@ def test_edge_support_counter_reuse_and_conflicts(graphs, ref_support):
     for kw in (dict(method="panel"), dict(max_wedge_chunk=8), dict(device="cpu")):
         with pytest.raises(ValueError, match="not both"):
             an.edge_support(graphs["kron"], counter=tc, **kw)
-    with pytest.raises(NotImplementedError, match="Distributed"):
+    with pytest.raises(ValueError, match="not both"):
+        an.edge_support(graphs["kron"], counter=tc, mesh=object())
+    with pytest.raises(TypeError, match="Mesh"):
         an.edge_support(graphs["kron"], mesh=object(), device="cpu")
 
 
@@ -288,7 +292,7 @@ def test_truss_empty_graph_and_not_ported():
     assert dec.max_k == 0 and dec.n_edges == 0 and dec.spectrum() == {}
     sub, k = an.k_truss_subgraph(np.zeros((0, 2), np.int32), device="cpu")
     assert sub.shape == (0, 2) and k == 0
-    with pytest.raises(NotImplementedError, match="Distributed"):
+    with pytest.raises(TypeError, match="Mesh"):  # mesh= is ported (ROADMAP A6)
         an.k_truss_decomposition(np.zeros((0, 2), np.int32), mesh=object(), device="cpu")
 
 

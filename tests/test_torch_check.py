@@ -5,8 +5,10 @@
 * the sanitizer inside ``run_workload``: a healthy run gives the same
   result with it on, and a backend that breaks the int32 contract (a
   64-bit, negative or over-headroom partial) raises only with it on;
-* what is not ported yet raises: ``CompileAuditor`` (ROADMAP A5b),
-  ``TriangleCounter(mesh=)`` and ``GraphService(mesh=)``.
+* what is not ported yet raises: ``CompileAuditor`` (ROADMAP A5b); a
+  ``mesh=`` that is no ``repro_torch.distributed.Mesh`` is refused by
+  ``TriangleCounter`` and ``GraphService``, and a real one reaches every
+  lane's engine.
 """
 import numpy as np
 import pytest
@@ -151,17 +153,29 @@ def test_not_ported_yet_raises():
     assert "CompileAuditor" not in check.__all__
     assert set(check.__all__) == {"PARTIAL_HEADROOM", "REPRO_CHECK_ENV", "RuntimeCheckError",
                                   "enabled", "check_partial", "check_partials"}
-    with pytest.raises(NotImplementedError, match="not yet ported.*Distributed"):
+    # the mesh is ported (ROADMAP A6): only a mesh of the wrong type is refused
+    with pytest.raises(TypeError, match="Mesh"):
         TriangleCounter(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(TypeError, match="Mesh"):
         engine.TriangleCounter(method="pallas", mesh=object(), device="cpu")
 
 
 def test_service_mesh_is_not_ported(tmp_path):
+    from repro_torch.distributed import Mesh
     from repro_torch.serve import GraphService
 
-    with pytest.raises(NotImplementedError, match="not yet ported.*A6"):
+    with pytest.raises(TypeError, match="Mesh"):
         GraphService(str(tmp_path), mesh=object(), device="cpu", start=False)
+    mesh = Mesh(["cpu"] * 3)
+    svc = GraphService(str(tmp_path), mesh=mesh, method="distributed", start=False)
+    try:
+        assert svc.device == torch.device("cpu") and svc.mesh is mesh
+        tc = svc._new_engine()
+        assert tc.mesh is mesh and tc.method == "distributed"
+        assert tc.count(np.array([[0, 1], [1, 0], [1, 2], [2, 1], [0, 2], [2, 0]])) == 1
+        assert tc.last_stats.method == "distributed" and tc.last_stats.n_stripes == 3
+    finally:
+        svc.close()
 
 
 @pytest.mark.cuda

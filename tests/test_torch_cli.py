@@ -99,8 +99,10 @@ def test_tricsr_written_by_either_package_loads_in_the_other(tmp_path):
     assert TriangleCounter(device="cpu").count(from_ref) == 45
 
 
-@pytest.mark.parametrize("flag", [["--distributed"], ["--method", "distributed"]])
+@pytest.mark.parametrize("flag", [["--distributed", "--method", "pallas"],
+                                  ["--distributed", "--method", "wedge_bsearch"]])
 def test_cli_not_ported_flags_fail_cleanly(tmp_path, monkeypatch, capsys, flag):
+    """--distributed is ported; what it conflicts with stops before ingest."""
     from repro_torch.launch import count as cli
 
     monkeypatch.setattr(sys, "argv", ["count", "--input", KARATE, "--device", "cpu",
@@ -108,7 +110,8 @@ def test_cli_not_ported_flags_fail_cleanly(tmp_path, monkeypatch, capsys, flag):
     with pytest.raises(SystemExit) as exc:
         cli.main()
     assert exc.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert f"conflicts with --method {flag[-1]}" in err
     assert not any(tmp_path.iterdir())  # stopped before any ingest
 
 
@@ -175,11 +178,18 @@ def test_analyze_cli_no_truss(tmp_path, monkeypatch, capsys):
 
 
 def test_analyze_cli_method_distributed_is_not_ported(tmp_path, monkeypatch, capsys):
-    with pytest.raises(SystemExit) as exc:
-        _analyze_main(monkeypatch, tmp_path, "--device", "cpu", "--method", "distributed")
-    assert exc.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
-    assert not any(tmp_path.iterdir())  # stopped before any ingest
+    """--method distributed is ported: every stage runs on the CPU's mesh
+    and the report is karate's (ROADMAP A2's gate)."""
+    _analyze_main(monkeypatch, tmp_path, "--device", "cpu", "--json",
+                  "--method", "distributed", "--max-wedge-chunk", "64")
+    captured = capsys.readouterr()
+    out = json.loads(captured.out.strip().splitlines()[-1])
+    assert "mesh: 1 stripe(s) on 1 device(s)" in captured.err
+    assert out["triangles"] == 45 and out["support"]["sum"] == 135
+    assert out["engine"]["method"] == out["support"]["method"] == "distributed"
+    assert out["truss"]["method"] == "distributed"
+    assert out["truss"]["max_k"] == 5
+    assert out["truss"]["spectrum"] == {"2": 11, "3": 42, "4": 11, "5": 14}
 
 
 def test_analyze_cli_default_device_is_the_card(tmp_path, monkeypatch, capsys):
@@ -287,7 +297,7 @@ def test_serve_graph_cli_trace_and_metrics(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags", [["--resume"], ["--batch-size", "0"], ["--window", "0"],
                                    ["--snapshot-every", "0"], ["--report-every", "0"],
-                                   ["--method", "distributed"]])
+                                   ["--keep-snapshots", "0"]])
 def test_serve_graph_cli_bad_flags_fail_before_ingest(tmp_path, monkeypatch, capsys, flags):
     from repro_torch.launch import serve_graph as cli
 
@@ -296,8 +306,6 @@ def test_serve_graph_cli_bad_flags_fail_before_ingest(tmp_path, monkeypatch, cap
     with pytest.raises(SystemExit) as exc:
         cli.main()
     assert exc.value.code != 0
-    if flags[-1] == "distributed":
-        assert "not yet ported" in capsys.readouterr().err
     assert not any(tmp_path.iterdir())  # stopped before any ingest
 
 

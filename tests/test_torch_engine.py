@@ -215,10 +215,15 @@ def test_auto_dispatch_by_device():
 
 
 def test_not_ported_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the distributed schedule is ported (ROADMAP A6); without a mesh it
+    # raises the reference's errors
+    with pytest.raises(ValueError, match="requires a mesh"):
         TriangleCounter(method="distributed", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_engine.make_backend("distributed")
+    backend = port_engine.make_backend("distributed")
+    work = port_engine.make_workload(*(np.array(a, np.int32) for a in (
+        [0, 1, 1], [1], [1, 0], [0], [1])), device="cpu")
+    with pytest.raises(ValueError, match="needs a repro_torch.distributed.Mesh"):
+        port_engine.run_workload(backend, "count", work)
     with pytest.raises(ValueError):
         TriangleCounter(method="bogus", device="cpu")
     with pytest.raises(ValueError):
