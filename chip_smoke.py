@@ -122,6 +122,17 @@ Phases, each of which fails loudly (non-zero exit, no final line):
              through distributed probes equal a wedge_bsearch counter; the
              count CLI (``--distributed``) and serve_graph (``--method
              distributed``, verified) on the card's local mesh;
+8j. audit  — no graph pass of its own: 8c's kron-16 pallas peel and 8e's
+             16 kron-21 updates each ran inside a ``CompileAuditor``; per
+             kernel, the launch signatures (shapes, dtypes, width, tiles,
+             wedge budget, ...) first seen in the run stay within
+             factor·log2(m) + slack: the stream the reference's test bound
+             (2, 4; m its live edges in both directions), the peel the
+             reference's default one (4, 6; m its edges), both bounds
+             printed; the run's own kernel recorded some, and no kernel
+             library was built or loaded (phase 2 loaded both); ``python -m
+             repro_torch.check --json`` on the checkout reports no
+             unsuppressed trilint finding;
 9. attention_kernel — the flash-attention kernel against its plain version
              (``flash_attention_torch``) and the dense oracle on the card: the
              reference test's five cases, a causal Sq > Skv case (its rows
@@ -149,7 +160,9 @@ launches in phases 8a-8c; the count and per-node CSR kernels also a
 ``stream_launches`` field: the count's in 8e's bootstrap, the per-node's
 over 8e's 16 updates (8f runs in its own processes); and rows 1-3
 ``tuning_launches`` (8g's tuned counts, per-node and support, the sweep's
-launches included) and ``service_launches`` (8h, the CLI's excepted).  The last two lines are the ``kernels`` JSON line and
+launches included) and ``service_launches`` (8h, the CLI's excepted);
+rows 1-3 ``audit_traces``: their new launch signatures in 8j's two runs.
+The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1265,8 +1278,10 @@ def phase_truss(device="cuda"):
     """k-truss through pallas on kron-16 equals the wedge_bsearch peel
     (trussness, rounds, max_k); the support kernel launches once per chunk of
     every round and nothing else does.  On kron-12 the pallas trussness
-    equals :func:`truss_oracle`.  Returns the support kernel's launches."""
+    equals :func:`truss_oracle`.  Returns the support kernel's launches and
+    the launch-signature audit of the kron-16 pallas peel (phase 8j)."""
     from repro_torch.analytics import k_truss_decomposition
+    from repro_torch.check.runtime import CompileAuditor
     from repro_torch.graphs import kronecker_rmat
     from repro_torch.kernels.triangle_count import launches, reset_launches
 
@@ -1276,13 +1291,16 @@ def phase_truss(device="cuda"):
     edges = kronecker_rmat(scale, edge_factor=16, seed=TRUSS_SEED)
     for method in ("pallas", "wedge_bsearch"):
         reset_launches()
-        with rounds_recorded() as rec:
+        with CompileAuditor() as aud, rounds_recorded() as rec:
             sync()
             t0 = time.perf_counter()
             dec = k_truss_decomposition(edges, method=method, max_wedge_chunk=TRUSS_BUDGET,
                                         device=device)
             sync()
             wall = time.perf_counter() - t0
+        if method == "pallas":
+            audit = {"run": f"truss kron-{scale} pallas", "auditor": aud, "m": int(dec.n_edges),
+                     "rounds": dec.rounds, "wall_s": wall}
         ln = dict(launches)
         check(dec.method == method, f"truss: executed {dec.method}, asked {method}")
         check(len(rec.rounds) == dec.rounds, f"truss: {len(rec.rounds)} rounds timed, "
@@ -1329,7 +1347,7 @@ def phase_truss(device="cuda"):
     emit({"phase": "truss_oracle", "graph": f"kron-{oracle_scale}", "edges": len(want),
           "max_k": dec.max_k, "rounds": dec.rounds, "oracle_rounds": oracle_rounds,
           "wall_s": wall, "oracle_s": oracle_s, "launches": ln})
-    return total
+    return total, audit
 
 
 def phase_analyze_cli():
@@ -1469,7 +1487,9 @@ def phase_stream(edges, exact_s: float, per_node21):
     wedge_bsearch counter restored from the same state.  Over the 16 updates
     the per-node CSR kernel launches Σ n_probe_launches times and no other
     kernel runs.  Returns the stream's launches of the count and per-node
-    CSR kernels."""
+    CSR kernels, and the launch-signature audit of the 16 updates (phase
+    8j)."""
+    from repro_torch.check.runtime import CompileAuditor
     from repro_torch.core import IncrementalTriangleCounter
     from repro_torch.kernels.triangle_count import launches, reset_launches
 
@@ -1507,7 +1527,8 @@ def phase_stream(edges, exact_s: float, per_node21):
 
     batches = []
     reset_launches()
-    with probes_recorded(ctr) as rec:
+    t_updates = time.perf_counter()
+    with CompileAuditor() as aud, probes_recorded(ctr) as rec:
         for op in ("insert", "delete"):
             for i, batch in enumerate(held):
                 wedge = None
@@ -1553,6 +1574,10 @@ def phase_stream(edges, exact_s: float, per_node21):
                                         f"!= {T21}")
                 check(np.array_equal(ctr.per_node(), per_node21),
                       "stream: per_node after the inserts differs from phase 6's vector")
+    # m as the reference's incremental test counts it: the live edges in
+    # both directions (current_edges())
+    audit = {"run": "stream kron-21 pallas", "auditor": aud, "m": 2 * int(ctr.n_edges),
+             "updates": 2 * len(held), "wall_s": time.perf_counter() - t_updates}
     ln = dict(launches)
     check(ctr.count == count0, f"stream: {ctr.count} after the deletes != bootstrap {count0}")
     check(np.array_equal(ctr.per_node(), per_node0),
@@ -1580,7 +1605,7 @@ def phase_stream(edges, exact_s: float, per_node21):
           "probe_fold_s": sum(p["fold_s"] for p in probes),
           "launches": ln, "bootstrap_s": boot_s})
     return {"intersect_count_csr": boot_ln["intersect_count_csr"],
-            "intersect_per_node_csr": ln["intersect_per_node_csr"]}
+            "intersect_per_node_csr": ln["intersect_per_node_csr"]}, audit
 
 
 def run_serve_cli(*flags):
@@ -2291,6 +2316,123 @@ def phase_distributed_cards(edges, csr, per_node21, support21):
 
 
 # ---------------------------------------------------------------------------
+# phase 8j: the launch-signature audit and trilint
+# ---------------------------------------------------------------------------
+
+# each kernel may see at most factor·log2(m) + slack distinct launch
+# signatures in a run (CompileAuditor.assert_log_bound).  The stream is held
+# to the reference's test factors (tests/test_compile_audit.py); the kron-16
+# peel to the reference's default ones (assert_log_bound's), because its
+# support-kernel signatures multiply three pow2 axes (the live edges'
+# padded length, the width bucket, the rows), which grows as log²m: on an
+# NVIDIA H100 80GB HBM3 (700 W) the peel launched 46 distinct ones, over
+# the test bound of 43 (PERF.md §6).  Both bounds are printed for both runs.
+AUDIT_TEST_FACTORS = (2.0, 4)
+AUDIT_DEFAULT_FACTORS = (4.0, 6)
+AUDIT_FACTORS = {"truss": AUDIT_DEFAULT_FACTORS, "stream": AUDIT_TEST_FACTORS}
+# the kernel each audited run must have launched
+AUDIT_KERNEL = {"truss": "intersect_support_csr", "stream": "intersect_per_node_csr"}
+
+
+def audit_bound(m: int, factors) -> int:
+    factor, slack = factors
+    return int(factor * np.log2(max(int(m), 2)) + slack)
+
+
+def signature_axes(sigs) -> dict:
+    """How many distinct values each part of a kernel's new signatures takes:
+    ``arg<i>`` the i-th tensor's shape and dtype, and each static argument."""
+    axes = {}
+    for traced, static in sigs:
+        for i, t in enumerate(traced):
+            axes.setdefault(f"arg{i}", set()).add(repr(t))
+        for k, v in static:
+            axes.setdefault(k, set()).add(repr(v))
+    return {k: len(v) for k, v in axes.items()}
+
+
+def record_cost_us(reps: int = 20_000) -> dict:
+    """Host µs one launch spends recording its signature, on the card's
+    tensors: a CSR kernel's record (``record_csr_launch``) and a torch-ops
+    chunk kernel's (``records_launches`` around a function that returns at
+    once), each under a probe name no kernel uses."""
+    from repro_torch.check.runtime import records_launches
+    from repro_torch.kernels.triangle_count.triangle_count import record_csr_launch
+
+    row, col, u, v = (torch.zeros(n, dtype=torch.int32, device="cuda")
+                      for n in (2, 1, 65_536, 65_536))
+
+    @records_launches("audit_cost_probe_chunk", static=("wedge_budget", "n_steps"))
+    def chunk_probe(src_e, dst_e, row_offsets, col, out_deg, *, wedge_budget, n_steps):
+        return None
+
+    out = {}
+    for name, call in (
+        ("csr_kernel", lambda: record_csr_launch("audit_cost_probe_csr", row, col, u, v, None,
+                                                 1024, 65_536, None)),
+        ("chunk_kernel", lambda: chunk_probe(u, v, row, col, row, wedge_budget=1 << 26,
+                                             n_steps=10)),
+    ):
+        call()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
+    return out
+
+
+def phase_audit(audits):
+    """8c's kron-16 pallas peel and 8e's 16 kron-21 updates, each run inside a
+    ``CompileAuditor``: per kernel, the launch signatures first seen in the
+    run against ``factor·log2(m) + slack`` (``AUDIT_FACTORS``), how many
+    values each part of them took, and no kernel library built or loaded
+    there (phase 2 loaded both); the host µs a launch spends recording
+    (:func:`record_cost_us`).  Then ``python -m repro_torch.check --json``
+    on the checkout reports no unsuppressed finding.  Returns ``{run:
+    {kernel: new signatures}}``."""
+    from repro_torch.check.runtime import RuntimeCheckError
+
+    out = {}
+    for key, a in audits.items():
+        aud = a["auditor"]
+        traces = {k: v for k, v in aud.new_traces.items() if v}
+        builds = {k: v for k, v in aud.new_builds.items() if v}
+        factor, slack = AUDIT_FACTORS[key]
+        bound = audit_bound(a["m"], AUDIT_FACTORS[key])
+        emit({"phase": "audit", "run": a["run"], "m": a["m"], "factor": factor, "slack": slack,
+              "bound": bound, "test_bound": audit_bound(a["m"], AUDIT_TEST_FACTORS),
+              "default_bound": audit_bound(a["m"], AUDIT_DEFAULT_FACTORS),
+              "new_traces": traces, "new_builds": builds,
+              "axes": {k: signature_axes(sigs) for k, sigs in aud.new_signatures.items() if sigs},
+              **{k: v for k, v in a.items() if k not in ("run", "auditor", "m")}})
+        try:
+            check(aud.assert_log_bound(a["m"], factor=factor, slack=slack) == bound,
+                  f"audit {a['run']}: bound differs from {bound}")
+        except RuntimeCheckError as e:
+            raise SmokeFailure(f"audit {a['run']}: {e}") from e
+        check(traces.get(AUDIT_KERNEL[key], 0) > 0,
+              f"audit {a['run']}: {AUDIT_KERNEL[key]} recorded no launch signature")
+        check(not builds, f"audit {a['run']}: kernel libraries built or loaded {builds}")
+        out[key] = traces
+    emit({"phase": "audit_cost", "record_us": record_cost_us()})
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.check", "--json"],
+                       capture_output=True, text=True, env=env, cwd=HERE, timeout=300)
+    seconds = time.perf_counter() - t0
+    check(r.returncode == 0, f"trilint failed ({r.returncode}):\n{r.stdout[-4000:]}"
+                             f"{r.stderr[-4000:]}")
+    report = json.loads(r.stdout)
+    check(report["counts"]["unsuppressed"] == 0, f"trilint: {report['counts']}")
+    emit({"phase": "trilint", "counts": report["counts"], "passes": report["passes"],
+          "allowlist": os.path.relpath(report["allowlist"], HERE) if report["allowlist"]
+          else None, "seconds": seconds})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the flash-attention kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -2780,14 +2922,16 @@ def main() -> int:
     analytics_launches["intersect_count_csr"] += phase_doulion(edges, exact_s)
     for k, n in phase_report(edges, csr, top_nodes, top_edges).items():
         analytics_launches[k] += n
-    analytics_launches["intersect_support_csr"] += phase_truss()
+    truss_launches, truss_audit = phase_truss()
+    analytics_launches["intersect_support_csr"] += truss_launches
     phase_analyze_cli()
-    stream_launches = phase_stream(edges, exact_s, per_node21)
+    stream_launches, stream_audit = phase_stream(edges, exact_s, per_node21)
     phase_serve_graph_cli()
     tile_cache, tuning_launches = phase_tuning(csr, name, per_node21, support21)
     service_launches = phase_graph_service(csr, per_node21, support21, tile_cache)
     phase_distributed(edges, csr, per_node21, support21)
-    del edges, per_node21, support21
+    audit = phase_audit({"truss": truss_audit, "stream": stream_audit})
+    del edges, per_node21, support21, truss_audit, stream_audit
     chunks = real_chunks(csr, BUDGETS_21[0])
     phase_kernels_real(cmp, ccmp, csr, chunks)
     timing, top = phase_timing(csr, chunks, rate)
@@ -2808,6 +2952,7 @@ def main() -> int:
             "library_ms": None, "gather_panel_ms": t["gather_panel_ms"],
             "analytics_launches": analytics_launches[k],
             "checked_cases": ccmp.cases[k], "shape": [t["rows"], top], "on_main_path": True,
+            "audit_traces": {run: traces.get(k, 0) for run, traces in audit.items()},
         })
         check(main_launches[k] > 0, f"{k} was not launched on the main path")
         check(analytics_launches[k] > 0, f"{k} was not launched on the analytics path")

@@ -38,6 +38,7 @@ from repro_torch.core.engine import (
     resolve_method,
     search_steps,
 )
+from repro_torch.distributed.compression import ensure_fits_int32
 from repro_torch.distributed.mesh import mesh_device
 
 from .support import support_on_arrays
@@ -173,6 +174,8 @@ def k_truss_decomposition(
 
 def _alive_support(src0, col0, idx, n, steps, max_wedge_chunk, method, device, mesh=None):
     """Support of the surviving edges, on the filtered (pow2-padded) CSR."""
+    # the sub-CSR's degrees and offsets are int32: at most the alive edges
+    ensure_fits_int32(idx.shape[0], "alive edge count (sub-CSR row offsets)")
     sub_src = src0[idx]
     sub_col = col0[idx]
     sub_out = np.bincount(sub_src, minlength=n).astype(np.int32)

@@ -115,6 +115,9 @@ def _expand_close_body(
     """
     dev = col.device
     m_local = src_e.shape[0]
+    # edge_id < m_local and a valid slot's pos < its degree <= |col| are
+    # narrowed to int32 below
+    ensure_fits_int32(max(m_local, col.shape[0]), "chunk edges / CSR size (wedge slot ids)")
     valid_e = src_e >= 0
     safe_src = src_e.clamp(min=0)
     safe_dst = dst_e.clamp(min=0)
@@ -182,6 +185,7 @@ def segmented_int32_sum(hits: torch.Tensor, seg: int = 1 << 20) -> torch.Tensor:
     pad = (-n) % seg
     if pad:
         hits = torch.cat([hits, hits.new_zeros((pad,))])
+    # trilint: ok[overflow] — a chunk partial: each segment sum is at most seg
     return hits.reshape(-1, seg).sum(dim=1, dtype=torch.int32)
 
 

@@ -30,6 +30,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.check.runtime import records_launches
 from repro_torch.distributed.compression import (
     compressed_all_gather_int32,
     ensure_fits_int32,
@@ -190,6 +191,7 @@ def _add_in_range(out: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> No
     out.index_add_(0, torch.where(keep, idx, 0), torch.where(keep, val, 0))
 
 
+@records_launches(static=("kind", "wedge_budget", "n_steps", "n_out", "shorter_side"))
 def _stripe_body(kind, src_e, dst_e, row, col, deg, wedge_budget, n_steps, n_out,
                  shorter_side):
     """One stripe's share of a chunk, on the device its tensors lie on.
@@ -208,13 +210,13 @@ def _stripe_body(kind, src_e, dst_e, row, col, deg, wedge_budget, n_steps, n_out
         # w may read a padded or sentinel col slot on lanes that are no hit
         out = torch.zeros((n_out,), dtype=torch.int32, device=col.device)
         for idx in (u, v, w):
-            _add_in_range(out, idx, inc)
+            _add_in_range(out, idx, inc)  # trilint: ok[overflow] stripe chunk partial
         return out
     ac = torch.zeros((n_out,), dtype=torch.int32, device=col.device)
-    _add_in_range(ac, w_idx, inc)
-    _add_in_range(ac, vw_idx, inc)
+    _add_in_range(ac, w_idx, inc)  # trilint: ok[overflow] stripe chunk partial
+    _add_in_range(ac, vw_idx, inc)  # trilint: ok[overflow] stripe chunk partial
     base = torch.zeros((src_e.shape[0],), dtype=torch.int32, device=col.device)
-    _add_in_range(base, edge_id.to(torch.int64), inc)
+    _add_in_range(base, edge_id.to(torch.int64), inc)  # trilint: ok[overflow] stripe chunk partial
     return ac, base
 
 
@@ -341,13 +343,15 @@ def make_distributed_panel_count_fn(
     panel width.  Returns ``(fn, widths)``: ``fn`` takes the per-width
     striped ``(n_shards, e_w)`` src arrays, then the dst arrays, then the
     CSR (tensors or :meth:`Mesh.replicate` maps), and returns the
-    ``(n_shards,)`` int32 per-stripe counts on ``mesh.lead``.
+    ``(n_shards,)`` int64 per-stripe counts on ``mesh.lead``: each row's
+    count is an int32 partial (at most its width), and a stripe's total,
+    which no chunking bounds, is summed in int64.
     """
     widths = sorted(edges_per_shard_by_width)
     lead = mesh.lead
 
     def stripe(dev, srcs, dsts, row, col, deg):
-        total = torch.zeros((), dtype=torch.int32, device=dev)
+        total = torch.zeros((), dtype=torch.int64, device=dev)
         last = col.shape[0] - 1
         for width, src_e, dst_e in zip(widths, srcs, dsts):
             valid_e = src_e >= 0
@@ -362,8 +366,9 @@ def make_distributed_panel_count_fn(
             a = panel(row[u], deg[u])
             b = panel(row[v], deg[v])
             eq = (a[:, :, None] == b[:, None, :]) & (a[:, :, None] >= 0)
+            # trilint: ok[overflow] a row's partial: at most its width
             counts = eq.sum(dim=(1, 2), dtype=torch.int32)
-            total = total + torch.where(valid_e, counts, 0).sum(dtype=torch.int32)
+            total = total + torch.where(valid_e, counts, 0).sum(dtype=torch.int64)
         return total
 
     def fn(*args):

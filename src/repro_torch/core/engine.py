@@ -241,10 +241,14 @@ def _stripe_stats(stripe_loads, stripe_times) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# chunk kernels (torch ops; one call per chunk)
+# chunk kernels (torch ops; one call per chunk).  Each records its launch
+# signature (the tensors' shapes and dtypes, wedge_budget, n_steps) for
+# repro_torch.check.runtime.CompileAuditor; ``edge_offset`` counts by type,
+# as the reference's traced scalar does.
 # ---------------------------------------------------------------------------
 
 
+@check_runtime.records_launches(static=("wedge_budget", "n_steps"))
 def chunk_count_kernel(src_e, dst_e, row_offsets, col, out_deg, *, wedge_budget, n_steps):
     """int32 partials (one per 2²⁰-slot segment) for one −1-padded edge chunk."""
     hit, _, _, _ = expand_and_close_wedges(
@@ -253,6 +257,7 @@ def chunk_count_kernel(src_e, dst_e, row_offsets, col, out_deg, *, wedge_budget,
     return segmented_int32_sum(hit)
 
 
+@check_runtime.records_launches(static=("wedge_budget", "n_steps"))
 def chunk_per_node_kernel(src_e, dst_e, row_offsets, col, out_deg, *, wedge_budget, n_steps):
     """Per-vertex int32 triangle incidences contributed by one edge chunk."""
     hit, u, v, w = expand_and_close_wedges(
@@ -265,10 +270,12 @@ def chunk_per_node_kernel(src_e, dst_e, row_offsets, col, out_deg, *, wedge_budg
     # (the incremental probe's padded col tail), which the reference's
     # scatter drops and index_add_ would refuse, so it is clipped
     for idx in (u, v, w.clamp(0, n_out - 1)):
+        # trilint: ok[overflow] — a chunk partial: at most the chunk's wedge slots
         out.index_add_(0, idx, inc)
     return out
 
 
+@check_runtime.records_launches(static=("wedge_budget", "n_steps"))
 def chunk_support_kernel(
     src_e, dst_e, edge_offset, row_offsets, col, out_deg, *, wedge_budget, n_steps
 ):
@@ -286,6 +293,7 @@ def chunk_support_kernel(
     uv_idx = (edge_id + int(edge_offset)).clamp_(0, m_dir - 1)
     out = torch.zeros((m_dir,), dtype=torch.int32, device=col.device)
     for idx in (uv_idx, uw_idx, vw_idx):
+        # trilint: ok[overflow] — a chunk partial: at most the chunk's wedge slots
         out.index_add_(0, idx, inc)
     return out
 
@@ -784,7 +792,7 @@ class DistributedBackend(KernelBackend):
             for start, s, d in iter_striped_chunks(src_sh, dst_sh, bounds, cols_per_chunk)
         )
         return WorkPlan(
-            chunks, len(bounds), eff, int(loads.sum()),
+            chunks, len(bounds), eff, int(loads.sum(dtype=np.int64)),
             n_stripes=self.n_shards, stripe_loads=tuple(int(x) for x in loads),
         )
 

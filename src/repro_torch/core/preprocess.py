@@ -75,6 +75,7 @@ class OrientedCSR(NamedTuple):
 
 def degrees(edges: torch.Tensor, n_nodes: int) -> torch.Tensor:
     """Undirected degree histogram from a canonical edge tensor."""
+    ensure_fits_int32(edges.shape[0], "canonical edge count (int32 degrees)")
     return torch.bincount(edges[:, 0], minlength=n_nodes).to(torch.int32)
 
 
@@ -85,6 +86,7 @@ def _sorted_csr(su: torch.Tensor, sv: torch.Tensor, deg: torch.Tensor, n_nodes: 
     src = su[order].contiguous()
     col = sv[order].contiguous()
     ids = torch.arange(n_nodes + 1, dtype=torch.int32, device=src.device)
+    ensure_fits_int32(src.shape[0], "directed edge count (int32 row offsets)")
     row_offsets = torch.searchsorted(src, ids, out_int32=True)
     out_degree = row_offsets[1:] - row_offsets[:-1]
     return OrientedCSR(row_offsets, src, col, out_degree, deg)

@@ -55,6 +55,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch._device import resolve_device
+from repro_torch.distributed.compression import ensure_fits_int32
 from repro_torch.kernels.triangle_count.triangle_count import (
     CSR_LANES,
     CSR_MAX_SMEM,
@@ -154,6 +155,8 @@ def _synthetic_csr(rng: np.random.Generator, b: int, width: int):
         deg = np.ones(n, np.int64)
     # gaps of 1..7 between neighbours: sorted, distinct, density ~1/4
     vals = np.cumsum(rng.integers(1, 8, size=(n, width)), axis=1)
+    ensure_fits_int32(max(int(vals[:, -1].max()), int(deg.sum(dtype=np.int64))),
+                      "synthetic CSR ids and offsets")
     col = vals[np.arange(width)[None, :] < deg[:, None]].astype(np.int32)
     row_offsets = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
     u = rng.integers(0, n, size=b).astype(np.int32)

@@ -128,4 +128,5 @@ def compressed_all_gather_int32(
         d = torch.diff(p, prepend=p.new_zeros((1,)))
         wires.append(zigzag_encode(d).to(torch.uint16).to(lead))
     z = torch.stack(wires).to(torch.int32)
+    # trilint: ok[overflow] — the deltas' prefix sums are the stripes' int32 partials
     return torch.cumsum(zigzag_decode(z), dim=-1, dtype=torch.int32)

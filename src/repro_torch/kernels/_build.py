@@ -114,10 +114,14 @@ class KernelLibrary:
         return {"built": True, "seconds": time.perf_counter() - t0, "log": "".join(logs)}
 
     def load(self) -> ctypes.CDLL:
-        """The loaded library, building it first when it is missing."""
+        """The loaded library, building it first when it is missing.  The
+        first load of each process (a build, or a load of the file) is
+        recorded for :class:`repro_torch.check.runtime.CompileAuditor`."""
         with self._lock:
             if self._lib is not None:
                 return self._lib
+            from repro_torch.check.runtime import record_build
+
             out = build_dir() / f"lib{self.name}_{self.digest()}.so"
             info = {"built": False, "seconds": 0.0, "log": ""}
             if not out.exists():
@@ -125,6 +129,7 @@ class KernelLibrary:
             info["path"] = str(out)
             self._lib = self._declare(ctypes.CDLL(str(out)))
             self._info = info
+            record_build(self.name)
             return self._lib
 
     def info(self) -> dict | None:

@@ -7,16 +7,20 @@ warp-specialised kernel (a TMA producer warp feeding a ring of K/V
 tiles to one or two ``wgmma`` consumer warpgroups); f32 runs scalar FMAs.
 
 :func:`flash_attention_cuda` checks its inputs, allocates the output,
-launches on the current stream, raises on a nonzero ``cudaError_t`` and
-counts its launches in :data:`launches`.  It takes CUDA tensors only; the
-CPU path is :mod:`.ops`, which sends CPU tensors to the plain version
-(:func:`repro_torch.models.attention.flash_attention_torch`).
+launches on the current stream, raises on a nonzero ``cudaError_t``,
+counts its launches in :data:`launches` and records its launch signature
+(q, k, v shapes and dtype, ``causal``, the scale and the block pair) for
+:class:`repro_torch.check.runtime.CompileAuditor`.  It takes CUDA tensors
+only; the CPU path is :mod:`.ops`, which sends CPU tensors to the plain
+version (:func:`repro_torch.models.attention.flash_attention_torch`).
 """
 from __future__ import annotations
 
 import threading
 
 import torch
+
+from repro_torch.check.runtime import record_launch
 
 __all__ = [
     "flash_attention_cuda",
@@ -127,6 +131,8 @@ def flash_attention_cuda(
     if sm_scale is None:
         sm_scale = d ** -0.5
     bq, bk = _blocks(block_q, block_k, sq, skv, q.dtype)
+    record_launch("flash_attention", (q, k, v), causal=bool(causal), sm_scale=float(sm_scale),
+                  block_q=bq, block_k=bk)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

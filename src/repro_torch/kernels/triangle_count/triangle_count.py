@@ -34,14 +34,19 @@ and the kernel is bound by reading the two panels.
 Each wrapper checks its inputs, allocates its outputs, launches on the
 current stream and raises on a launch error; it counts its launches in
 :data:`launches`, under a lock, so launches from several threads (the
-service's lanes) are all counted.  The wrappers take CUDA tensors only — the CPU path is
-:mod:`.ops`, which sends CPU tensors to the plain versions in :mod:`.ref`.
+service's lanes) are all counted.  Each also records its launch signature
+(:func:`record_panel_launch`, :func:`record_csr_launch`) for
+:class:`repro_torch.check.runtime.CompileAuditor`.  The wrappers take CUDA
+tensors only — the CPU path is :mod:`.ops`, which sends CPU tensors to the
+plain versions in :mod:`.ref` and records the same signatures.
 """
 from __future__ import annotations
 
 import threading
 
 import torch
+
+from repro_torch.check.runtime import record_launch
 
 __all__ = [
     "intersect_count_cuda",
@@ -120,9 +125,22 @@ def _warps(tiles) -> int:
     return max(1, min(int(tiles[0]), 32))
 
 
+def record_panel_launch(kind: str, a, b, tiles) -> None:
+    """A panel kernel's launch signature: the two panels and ``tiles``."""
+    record_launch(kind, (a, b), tiles=tiles)
+
+
+def record_csr_launch(kind: str, row_offsets, col, u, v, edge_idx, width, n_out, tiles) -> None:
+    """A CSR kernel's launch signature: its tensors, ``width``, the output
+    length and ``tiles``."""
+    record_launch(kind, (row_offsets, col, u, v, edge_idx), width=int(width),
+                  n_out=int(n_out), tiles=tiles)
+
+
 def _launch(kind: str, a, b, count, arm, closure, tiles) -> None:
     from ._build import load_library
 
+    record_panel_launch(kind, a, b, tiles)
     n, lu = a.shape
     lv = b.shape[1]
     if n == 0:
@@ -238,6 +256,7 @@ def check_csr_tiles(tiles, width: int) -> tuple[int, int]:
 
 def _launch_csr(kind: str, row_offsets, col, u, v, edge_idx, width, out, n_out, tiles) -> None:
     rows, lanes = (0, 0) if tiles is None else check_csr_tiles(tiles, width)
+    record_csr_launch(kind, row_offsets, col, u, v, edge_idx, width, n_out, tiles)
     n = u.shape[0]
     if n == 0:
         return

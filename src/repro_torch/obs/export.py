@@ -10,8 +10,9 @@ Two formats, one event stream:
   resolution).
 * **JSONL** — one JSON object per line: a ``meta`` header (schema tag +
   environment fingerprint), one ``span`` record per event with raw ns
-  fields, and a trailing ``metrics`` record (counters, gauges and the
-  ``jit_traces`` slot, which the port leaves empty).  This is the
+  fields, and a trailing ``metrics`` record (counters, gauges and
+  ``jit_traces``: in the port, the new launch signatures per kernel entry
+  point, see :mod:`repro_torch.obs.tracer`).  This is the
   diff/ingest-friendly form for scripts.
 
 Both validators are stdlib-only (no torch, no jsonschema) so CI's lint-tier

@@ -20,14 +20,21 @@ Three design constraints shape everything here:
   is ``torch.cuda.synchronize()`` under an active tracer when the value
   holds a CUDA tensor, and the identity otherwise) before it closes.
 * **Import-time stdlib-only.**  ``torch`` is imported lazily inside
-  ``sync`` so the exporters and validators run in torch-free contexts.
+  ``sync`` (and the launch auditor inside ``start_tracing``) so the
+  exporters and validators run in torch-free contexts.
 
 Events are recorded as plain dicts (``name``/``cat``/``ts_ns``/
 ``dur_ns``/``depth``/``args``) relative to the tracer's origin, ready
 for the Chrome trace-event / JSONL exporters in :mod:`repro_torch.obs.export`.
-PyTorch runs eagerly and mints no jit traces, so ``Tracer.jit_traces``
-stays empty; the slot is kept so exported traces keep the reference's
-schema.
+
+``Tracer.jit_traces`` keeps the reference's name and schema.  PyTorch runs
+eagerly and mints no jit traces; in the port the field counts, per kernel
+entry point, the *launch signatures* (input shapes and dtypes plus static
+configuration) first seen while the tracer was active, as
+:class:`repro_torch.check.runtime.CompileAuditor` reads them — the number
+of distinct shapes the reference would have traced.  Kernels with none
+are left out.  A tracer started with ``audit_compiles=False`` leaves it
+empty.  Unlike the reference, a failure of the auditor is not swallowed.
 """
 from __future__ import annotations
 
@@ -161,12 +168,14 @@ class Tracer:
     ``last_stats``.
     """
 
-    def __init__(self):
+    def __init__(self, *, audit_compiles: bool = True):
         self.events: list[dict] = []
         self.meta: dict = {}
         self.jit_traces: dict[str, int] = {}
         self._origin_ns = time.perf_counter_ns()
         self._depth = 0
+        self._audit_compiles = audit_compiles
+        self._auditor = None
 
     def span(self, name: str, cat: str = "", args=None) -> Span:
         return Span(self, name, cat, args)
@@ -191,7 +200,20 @@ class Tracer:
     # -- lifecycle (driven by start_tracing/stop_tracing) -------------------
 
     def _start(self) -> None:
+        if self._audit_compiles:
+            from repro_torch.check.runtime import CompileAuditor
+
+            self._auditor = CompileAuditor().__enter__()
+        # re-anchor after the auditor's (possibly first) import, so the
+        # first span doesn't inherit the import cost as leading dead time
         self._origin_ns = time.perf_counter_ns()
+
+    def _finish(self) -> None:
+        if self._auditor is None:
+            return
+        auditor, self._auditor = self._auditor, None
+        auditor.__exit__(None, None, None)
+        self.jit_traces = {k: v for k, v in auditor.new_traces.items() if v}
 
 
 # -- module-level switchboard ------------------------------------------------
@@ -243,9 +265,11 @@ def start_tracing(tracer: Tracer | None = None) -> Tracer:
 
 
 def stop_tracing() -> Tracer | None:
-    """Uninstall the active tracer."""
+    """Uninstall the active tracer (folding in the launch-signature counts)."""
     global _ACTIVE
     t, _ACTIVE = _ACTIVE, None
+    if t is not None:
+        t._finish()
     return t
 
 

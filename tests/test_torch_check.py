@@ -5,8 +5,10 @@
 * the sanitizer inside ``run_workload``: a healthy run gives the same
   result with it on, and a backend that breaks the int32 contract (a
   64-bit, negative or over-headroom partial) raises only with it on;
-* what is not ported yet raises: ``CompileAuditor`` (ROADMAP A5b); a
-  ``mesh=`` that is no ``repro_torch.distributed.Mesh`` is refused by
+* ``repro_torch.check`` exports the static passes' names beside the
+  runtime ones, and nothing in the port is left "not yet ported" for
+  ROADMAP A5b (the auditor itself: tests/test_torch_compile_audit.py);
+* a ``mesh=`` that is no ``repro_torch.distributed.Mesh`` is refused by
   ``TriangleCounter`` and ``GraphService``, and a real one reaches every
   lane's engine.
 """
@@ -21,7 +23,6 @@ from repro.core import TriangleCounter as RefCounter  # noqa: E402
 from repro_torch import check  # noqa: E402
 from repro_torch.check.runtime import (  # noqa: E402
     PARTIAL_HEADROOM,
-    CompileAuditor,
     RuntimeCheckError,
     check_partial,
     check_partials,
@@ -147,12 +148,28 @@ def test_sanitizer_checks_each_scatter_partial(monkeypatch, kron, kind):
     run_workload(Broken(-5), kind, work, budget=64)  # off: no check
 
 
-def test_not_ported_yet_raises():
-    with pytest.raises(NotImplementedError, match="not yet ported.*A5b"):
-        CompileAuditor()
-    assert "CompileAuditor" not in check.__all__
-    assert set(check.__all__) == {"PARTIAL_HEADROOM", "REPRO_CHECK_ENV", "RuntimeCheckError",
-                                  "enabled", "check_partial", "check_partials"}
+def test_check_exports_static_and_runtime_names():
+    from pathlib import Path
+
+    from repro_torch.check import runtime
+
+    assert set(check.__all__) == {"Finding", "ModuleInfo", "PASSES", "load_passes", "run_checks",
+                                  "PARTIAL_HEADROOM", "REPRO_CHECK_ENV", "RuntimeCheckError",
+                                  "enabled", "check_partial", "check_partials", "CompileAuditor"}
+    for name in check.__all__:
+        assert getattr(check, name) is not None
+    assert check.CompileAuditor is runtime.CompileAuditor
+    with check.CompileAuditor() as aud:
+        pass
+    assert aud.total_new_traces == 0
+    with pytest.raises(AttributeError):
+        check.not_a_name  # noqa: B018
+    port = Path(check.__file__).resolve().parents[1]
+    held = [str(p.relative_to(port)) for p in port.rglob("*.py") if "A5b" in p.read_text()]
+    assert not held, held
+
+
+def test_mesh_of_the_wrong_type_is_refused():
     # the mesh is ported (ROADMAP A6): only a mesh of the wrong type is refused
     with pytest.raises(TypeError, match="Mesh"):
         TriangleCounter(mesh=object(), device="cpu")

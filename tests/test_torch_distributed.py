@@ -637,3 +637,21 @@ def test_serve_graph_cli_distributed_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert "mesh: 1 device(s) striped on axis 'edges'" in out
     assert "probe backend: distributed" in out
     assert "verify: from-scratch recount agrees (T = 45)" in out
+
+
+def test_panel_stripe_totals_are_int64():
+    """A stripe's panel total sums every row of its stripe, which no chunk
+    bounds, so it is int64 (each row's count stays an int32 partial); the
+    reference keeps that total in int32, which would wrap at 2^31 triangles
+    a stripe."""
+    mesh = cpu_mesh(2)
+    # the triangle (0, 1, 2) oriented: 0→1, 0→2, 1→2; one query edge a stripe
+    row = torch.tensor([0, 2, 3, 3], dtype=torch.int32)
+    col = torch.tensor([1, 2, 2], dtype=torch.int32)
+    deg = torch.tensor([2, 1, 0], dtype=torch.int32)
+    fn, widths = dist.make_distributed_panel_count_fn(mesh, {16: 2})
+    src = np.array([[0, 1], [0, -1]], np.int32)
+    dst = np.array([[1, 2], [2, -1]], np.int32)
+    got = fn(src, dst, row, col, deg)
+    assert widths == [16] and got.dtype == torch.int64
+    assert got.tolist() == [1, 0]
