@@ -243,6 +243,32 @@ LM_ARCH = "qwen2-1.5b"
 LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = 4, 2048, 32, 0
 # the serving shape the kernel sees: q (4, 12, 2048, 128), k/v (4, 2, 2048, 128)
 ATTN_FULL = (LM_BATCH, 12, 2, LM_PROMPT, LM_PROMPT, 128, True)
+# head dim 16 runs in f32 only (the smoke configs': d_model 64 over 4 heads);
+# bf16 at D = 16 is refused by the wrapper and the C entry
+ATTN_D16 = [(2, 4, 2, 24, 24, 16, True), (1, 4, 1, 100, 160, 16, False),
+            (2, 4, 2, 200, 200, 16, True)]
+# phase 12: the attention kernel under autograd (forward the kernel,
+# backward the plain version recomputed) against autograd through the plain
+# version: qwen2-1.5b's training shape in bf16, a reduced S in f32 (TF32
+# off); output and dq, dk, dv within TRAIN_ATTN_TOL of each tensor's max
+TRAIN_ATTN = (2, 12, 2, 4096, 4096, 128, True)
+TRAIN_ATTN_F32 = (2, 12, 2, 512, 512, 128, True)
+TRAIN_ATTN_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+# phase 13: qwen2-1.5b trained at full width, accum 2 × microbatch 2 × 4096.
+# At constant(3e-4) with no warmup the loss rose (12.37, 10.86, 14.49, 12.12,
+# 13.16, 11.56 over 6 steps on the card, PERF.md): AdamW's first steps move
+# every weight by about lr, and the second overshot.  3e-5 stays in the
+# regime where each step lowers the loss.
+TRAIN_ACCUM, TRAIN_MICRO, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2, 4096, 6, 3e-5
+# the reduced qwen2 held against the CPU: 3 steps, loss and gnorm relative
+TRAIN_HOLD_TOL = 1e-4
+# phase 14: granite's MoE layer at full width (T tokens), card vs CPU in f32
+MOE_TOKENS, MOE_TOL = 4096, 1e-4
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_BATCH, MOE_PROMPT, MOE_GEN, MOE_TRAIN_SEQ = 2, 2048, 16, 2048
+# the train CLI's resumed run against an uninterrupted one (index_add's
+# atomics in the embedding and MoE backward reorder sums on the card)
+RESUME_TOL = 1e-4
 # decode step 1 against forward(prompt + token)[:, -1], f32 on both sides
 # (rtol, atol as the reference's smoke-size test)
 DECODE_TOL = 3e-4
@@ -258,8 +284,13 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj, sort_keys=True), flush=True)
+    """One JSON line, stamped with the script's seconds so far (``t_s``)."""
+    print(json.dumps({**obj, "t_s": round(time.perf_counter() - T_START, 3)}, sort_keys=True),
+          flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -968,29 +999,32 @@ def phase_timing(csr, chunks, rate):
 # ---------------------------------------------------------------------------
 
 
-def profiled(fn):
+def profiled(fn, all_device=False):
     """``fn()`` under torch.profiler: wall time, device busy time and share idle,
-    and the largest device entries.  Busy time sums the device entries' self
-    time (one stream: they do not overlap); the wall clock includes the
-    profiler's host overhead, so the idle share is an upper bound."""
+    and the largest device entries (``all_device``: every one).  Busy time
+    sums the device entries' self time (one stream: they do not overlap);
+    the wall clock includes the profiler's overhead, so the idle share is an
+    upper bound.  Device activity only: host op events would add nothing
+    here and cost ~40 s to parse over a train step's 10^5 of them."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # the device's own activities (kernels, copies), not the host ops that
-    # launched them, whose device time would count the same work twice
     rows = sorted(((ev.key, ev.self_device_time_total, ev.count)
                    for ev in prof.key_averages()
                    if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0),
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e6
-    return {"wall_s": wall, "device_busy_s": busy if rows else None,
-            "device_idle_share": (1.0 - busy / wall) if rows else None,
-            "top_device": [{"name": k[:80], "s": us / 1e6, "calls": n} for k, us, n in rows[:10]]}
+    out = {"wall_s": wall, "device_busy_s": busy if rows else None,
+           "device_idle_share": (1.0 - busy / wall) if rows else None,
+           "top_device": [{"name": k[:80], "s": us / 1e6, "calls": n} for k, us, n in rows[:10]]}
+    if all_device:
+        out["all_device"] = [{"name": k, "s": us / 1e6, "calls": n} for k, us, n in rows]
+    return out
 
 
 def phase_profile(edges, vectors):
@@ -2548,12 +2582,56 @@ def phase_attention_kernel():
             if case is ATTN_FULL and dtype == torch.bfloat16:
                 controls = attention_controls(q, k, v, first, plain, exact)
             del q, k, v, plain, dense, exact, first, got
+    d16_err, d16_cases = attention_d16(rng)
+    max_err, n_cases = max(max_err, d16_err), n_cases + d16_cases
     torch.cuda.empty_cache()
     emit({"phase": "attention_kernel", "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cases": n_cases, "max_abs_err": max_err, "bf16_vs_exact_worst": worst,
           "bf16_row_rel_l2_limit": BF16_ROW_REL_L2, "controls": controls,
           "worst": sorted(records, key=lambda r: -r["err_plain"])[:4], "scaled": scaled})
     return max_err, n_cases
+
+
+def attention_d16(rng):
+    """Head dim 16 in f32 (the smoke configs'), every f32 block pair, against
+    the plain version and the dense oracle; bf16 at D = 16 refused by the
+    wrapper and by the C entry.  Returns (max abs error, cases)."""
+    from repro_torch.kernels.flash_attention import _build
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.attention import flash_attention_torch
+
+    max_err, n = 0.0, 0
+    for case in ATTN_D16:
+        causal = case[6]
+        q, k, v = attn_inputs(rng, case, torch.float32)
+        plain = flash_attention_torch(q, k, v, causal=causal)
+        dense = attention_ref(q, k, v, causal=causal)
+        for bq, bk in ATTN_BLOCKS[torch.float32]:
+            got = flash_attention_cuda(q, k, v, causal=causal, block_q=bq, block_k=bk)
+            torch.cuda.synchronize()
+            label = f"flash_attention {case} float32 blocks ({bq}, {bk})"
+            err, ok = compare(got, plain, torch.float32)
+            check(ok, f"{label} disagrees with flash_attention_torch (max abs err {err})")
+            err_d, ok_d = compare(got, dense, torch.float32)
+            check(ok_d, f"{label} disagrees with attention_ref (max abs err {err_d})")
+            max_err, n = max(max_err, err), n + 1
+    qb, kb, vb = attn_inputs(rng, ATTN_D16[0], torch.bfloat16)
+    try:
+        flash_attention_cuda(qb, kb, vb)
+        refused = False
+    except ValueError as e:
+        refused = "bfloat16" in str(e)
+    check(refused, "flash_attention: bf16 at head dim 16 was not refused by the wrapper")
+    out = torch.empty_like(qb)
+    b, hq, sq, d = qb.shape
+    code = _build.load_library().fa_forward_launch(
+        1, 16, qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(), b, hq, kb.shape[1],
+        sq, kb.shape[2], 64, 64, d ** -0.5, 1, torch.cuda.current_stream().cuda_stream)
+    check(code != 0, "flash_attention: the C entry took bf16 at head dim 16")
+    emit({"phase": "attention_d16", "cases": n, "max_abs_err": max_err,
+          "bf16_refused": {"wrapper": refused, "c_entry_code": code}})
+    return max_err, n
 
 
 def attention_at_scale(q, k, v, case, scale, worst):
@@ -2857,6 +2935,389 @@ def phase_attention_timing(rate):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the attention kernel under autograd
+# ---------------------------------------------------------------------------
+
+
+def rel_to_max(got, want) -> float:
+    """max |got − want| over max |want|."""
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def attention_fwd_bwd(fn, q, k, v, grad_out):
+    """(output, dq, dk, dv) of ``fn(q, k, v)`` under autograd."""
+    inputs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*inputs)
+    return (out.detach(), *torch.autograd.grad(out, inputs, grad_out))
+
+
+def phase_train_attention(rate):
+    """``ops.attention`` on CUDA tensors that need a gradient (the
+    ``KernelAttention`` Function: the kernel forward, the plain version's
+    backward) against autograd through the plain version on the same card.
+    Times, at the training shape in bf16: the kernel forward, the plain
+    forward + backward, the Function's forward + backward and PyTorch's
+    fused attention forward + backward (the yardstick; the port never calls
+    it).  Returns the bf16 record."""
+    from repro_torch.kernels.flash_attention import launches, ops
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+    from repro_torch.models.attention import flash_attention_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(21)
+    out = {}
+    for case, dtype in ((TRAIN_ATTN, torch.bfloat16), (TRAIN_ATTN_F32, torch.float32)):
+        q, k, v = attn_inputs(rng, case, dtype)
+        grad_out = torch.from_numpy(rng.standard_normal(size=tuple(q.shape),
+                                                        dtype=np.float32)).to("cuda", dtype)
+        n0 = launches["flash_attention"]
+        got = attention_fwd_bwd(lambda *t: ops.attention(*t, causal=True), q, k, v, grad_out)
+        torch.cuda.synchronize()
+        fn_launches = launches["flash_attention"] - n0
+        want = attention_fwd_bwd(lambda *t: flash_attention_torch(*t, causal=True), q, k, v,
+                                 grad_out)
+        check(launches["flash_attention"] - n0 == fn_launches, "plain autograd launched the kernel")
+        check(fn_launches == 1, f"train_attention: the Function launched the kernel "
+                                f"{fn_launches} times, expected 1")
+        errs = {name: rel_to_max(a, b) for name, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+        rec = {"dtype": str(dtype), "shape": [list(q.shape), list(k.shape)], "rel_to_max": errs,
+               "tol": TRAIN_ATTN_TOL[dtype], "kernel_launches": fn_launches}
+        check(all(e <= TRAIN_ATTN_TOL[dtype] for e in errs.values()),
+              f"train_attention {case} {dtype}: {errs} over {TRAIN_ATTN_TOL[dtype]}")
+        del got, want
+        if dtype == torch.bfloat16:
+            b, hq, _, sq, skv, d, _ = case
+            flop = 4 * b * hq * d * causal_pairs(sq, skv)
+            fwd_bwd = lambda fn: lambda: attention_fwd_bwd(fn, q, k, v, grad_out)  # noqa: E731
+            rec.update({
+                "kernel_forward_ms": time_ms(lambda: flash_attention_cuda(q, k, v, causal=True),
+                                             reps=10, warm=3, batch=5),
+                "forward_bound_ms": max(flop / BF16_TENSOR_FLOP_PER_S,
+                                        2 * (2 * q.numel() + k.numel() + v.numel()) / rate) * 1e3,
+                "plain_forward_ms": time_ms(lambda: flash_attention_torch(q, k, v, causal=True),
+                                            reps=5, warm=1),
+                "plain_fwd_bwd_ms": time_ms(fwd_bwd(
+                    lambda *t: flash_attention_torch(*t, causal=True)), reps=5, warm=1),
+                "function_fwd_bwd_ms": time_ms(fwd_bwd(
+                    lambda *t: ops.attention(*t, causal=True)), reps=5, warm=1),
+                "library_fwd_bwd_ms": time_ms(fwd_bwd(sdpa), reps=10, warm=3),
+                "library_forward_ms": time_ms(lambda: sdpa(q, k, v), reps=10, warm=3, batch=5),
+                # the least time of the backward: 2.5× the forward's FLOP
+                # (dq, dk, dv and the recomputed scores), on the tensor cores
+                "backward_bound_ms": 2.5 * flop / BF16_TENSOR_FLOP_PER_S * 1e3,
+            })
+            rec["plain_backward_ms"] = rec["function_fwd_bwd_ms"] - rec["kernel_forward_ms"]
+        emit({"phase": "train_attention", **rec})
+        out[dtype] = rec
+        del q, k, v, grad_out
+        torch.cuda.empty_cache()
+    return out[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------------
+# phase 13: LM training, qwen2-1.5b at full width
+# ---------------------------------------------------------------------------
+
+
+class timed_attention_backward:
+    """CUDA events around each call of ``ops.KernelAttention.backward`` (the
+    plain recompute): its device time inside a train step."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+
+        self.cls, self.saved, self.events = ops.KernelAttention, ops.KernelAttention.backward, []
+        saved, events = self.saved, self.events
+
+        def backward(ctx, grad_out):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = saved(ctx, grad_out)
+            e1.record()
+            events.append((e0, e1))
+            return out
+
+        self.cls.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.backward = staticmethod(self.saved)
+
+    def seconds(self) -> float:
+        torch.cuda.synchronize()
+        return sum(e0.elapsed_time(e1) for e0, e1 in self.events) / 1e3
+
+
+def finite(x) -> bool:
+    return bool(np.isfinite(float(x)))
+
+
+def phase_lm_train():
+    """``make_lm_train_step(cfg, accum=2, lr=constant(3e-4))`` on
+    qwen2-1.5b's ``full_config()`` (bf16 compute, f32 masters, remat full),
+    6 steps on one repeated batch of 2 × 2 × 4096 tokens.  Returns the
+    kernel's launches over the 6 steps and the step record."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.lm_common import make_lm_train_step
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels.flash_attention import launches, reset_launches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import constant
+
+    cfg = get_arch(LM_ARCH).full_config()
+    check(cfg.remat and cfg.remat_policy == "full" and cfg.dtype == torch.bfloat16,
+          f"lm_train: unexpected config {cfg}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tfm.init_params(cfg, LM_SEED, device="cuda")
+    step_fn, opt_init = make_lm_train_step(cfg, accum=TRAIN_ACCUM, lr=constant(TRAIN_LR))
+    opt_state = opt_init(params)
+    b = lm_batch(0, 0, TRAIN_ACCUM * TRAIN_MICRO, TRAIN_SEQ, cfg.vocab_size)
+    batch = {k: torch.from_numpy(v).reshape(TRAIN_ACCUM, TRAIN_MICRO, TRAIN_SEQ).to("cuda")
+             for k, v in b.items()}
+    tokens = TRAIN_ACCUM * TRAIN_MICRO * TRAIN_SEQ
+    per_step = cfg.n_layers * TRAIN_ACCUM * (2 if cfg.remat else 1)
+    losses, gnorms, walls, step_launches = [], [], [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    for _ in range(TRAIN_STEPS):
+        n0 = launches["flash_attention"]
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+        step_launches.append(launches["flash_attention"] - n0)
+    n_launch = launches["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.median(walls[1:]))
+    rec = {"arch": LM_ARCH, "n_params": cfg.n_params(), "n_active_params": cfg.n_active_params(),
+           "accum": TRAIN_ACCUM, "micro_batch": TRAIN_MICRO, "seq": TRAIN_SEQ,
+           "tokens_per_step": tokens, "lr": TRAIN_LR, "losses": losses, "gnorms": gnorms,
+           "step_walls_s": walls, "step_s_median_2_6": step_s, "tokens_per_s": tokens / step_s,
+           "model_flop_per_step": 6 * cfg.n_active_params() * tokens,
+           "mfu_vs_989_tflops": 6 * cfg.n_active_params() * tokens / step_s / BF16_TENSOR_FLOP_PER_S,
+           "peak_device_bytes": peak, "launches_per_step": step_launches,
+           "expected_launches_per_step": per_step, "flash_attention_launches": n_launch}
+    emit({"phase": "lm_train", **rec})
+    check(all(finite(x) for x in losses + gnorms), f"lm_train: non-finite loss or gnorm {rec}")
+    check(np.mean(losses[-2:]) < np.mean(losses[:2]) - 0.1,
+          f"lm_train: the loss did not fall by 0.1: {losses}")
+    check(step_launches == [per_step] * TRAIN_STEPS,
+          f"lm_train: kernel launches per step {step_launches}, expected {per_step}")
+
+    # one more step under the profiler: busy and idle share, time by kernel,
+    # the attention kernel's forward against the plain recompute's backward
+    with timed_attention_backward() as bwd:
+        prof = profiled(lambda: step_fn(params, opt_state, batch), all_device=True)
+    prof["attention_kernel_forward_s"] = sum(r["s"] for r in prof.pop("all_device")
+                                             if "fa_fwd" in r["name"])
+    prof["attention_plain_backward_s"] = bwd.seconds()
+    prof["attention_backward_calls"] = len(bwd.events)
+    emit({"phase": "lm_train_profile", "window": "one train step", **prof})
+    rec["profile"] = prof
+    del params, opt_state, batch, m
+    torch.cuda.empty_cache()
+    rec["hold"] = train_hold_against_cpu()
+    return n_launch, rec
+
+
+def train_hold_against_cpu():
+    """A reduced qwen2 (2 layers, d_model 256, 2/1 heads of 128, QKV bias,
+    vocab 250 padded to 256, f32) on the same weights on the card (the
+    kernel under autograd) and on the CPU (the plain version): 3 steps of
+    ``make_lm_train_step``, loss and gnorm of each step within 1e-4
+    relative.  TF32 off."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.lm_common import make_lm_train_step
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels.flash_attention import launches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import constant
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(LM_ARCH).full_config(), n_layers=2, d_model=256,
+                              n_heads=2, n_kv_heads=1, d_ff=512, vocab_size=250, vocab_pad=64,
+                              dtype=torch.float32)
+    tree = tfm.params_to_numpy(tfm.init_params(cfg, 1, device="cpu"))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = tfm.params_from_numpy(tree, cfg, device=dev)
+        step_fn, opt_init = make_lm_train_step(cfg, accum=2, lr=constant(1e-3))
+        opt_state = opt_init(params)
+        n0, out = launches["flash_attention"], []
+        for i in range(3):
+            b = lm_batch(1, i, 2, 512, cfg.vocab_size)
+            batch = {k: torch.from_numpy(v).reshape(2, 1, 512).to(dev) for k, v in b.items()}
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            out.append((float(m["loss"]), float(m["gnorm"])))
+        runs[dev] = {"steps": out, "launches": launches["flash_attention"] - n0}
+    rel = max(abs(a - b) / abs(b) for s_gpu, s_cpu in zip(runs["cuda"]["steps"], runs["cpu"]["steps"])
+              for a, b in zip(s_gpu, s_cpu))
+    rec = {"cuda": runs["cuda"], "cpu": runs["cpu"], "max_rel": rel, "tol": TRAIN_HOLD_TOL}
+    emit({"phase": "lm_train_hold", **rec})
+    check(runs["cuda"]["launches"] == 3 * 2 * cfg.n_layers * 2,
+          f"lm_train_hold: {runs['cuda']['launches']} kernel launches on the card")
+    check(runs["cpu"]["launches"] == 0, "lm_train_hold: the CPU run launched the kernel")
+    check(rel <= TRAIN_HOLD_TOL, f"lm_train_hold: card vs CPU relative {rel} > {TRAIN_HOLD_TOL}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the train and serve CLIs, and the MoE layer at full width
+# ---------------------------------------------------------------------------
+
+
+def run_cli(module, *flags):
+    """``python -m repro_torch.launch.<module> flags`` in a subprocess: its
+    stdout lines and seconds; fails on a non-zero exit."""
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"repro_torch.launch.{module}", *flags],
+                       capture_output=True, text=True, env=env, cwd=HERE, timeout=600)
+    check(r.returncode == 0, f"{module} {' '.join(flags)}: exit {r.returncode}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+    return r.stdout.strip().splitlines(), time.perf_counter() - t0
+
+
+def final_loss(lines) -> float:
+    check(lines[-1].startswith("done: final loss "), f"train CLI: last line {lines[-1]!r}")
+    return float(lines[-1].split()[3])
+
+
+def phase_train_cli():
+    """The smoke-config train CLI on the card (head dim 16 in f32 through the
+    kernel under autograd): 10 steps with a checkpoint, resumed to 20, against
+    an uninterrupted 20; granite's MoE smoke config; the smoke-config serve
+    CLI."""
+    smoke = ("--arch", LM_ARCH, "--smoke", "--log-every", "5")
+    with tempfile.TemporaryDirectory() as tmp:
+        first, t1 = run_cli("train", *smoke, "--steps", "10", "--ckpt", f"{tmp}/d",
+                            "--ckpt-every", "10")
+        resumed, t2 = run_cli("train", *smoke, "--steps", "20", "--ckpt", f"{tmp}/d")
+        whole, t3 = run_cli("train", *smoke, "--steps", "20", "--ckpt", f"{tmp}/w")
+        ends = [np.load(f"{tmp}/{d}/step_000000020/arrays.npz") for d in ("d", "w")]
+        param_err = max(float(np.abs(ends[0][k] - ends[1][k]).max()) for k in ends[1].files
+                        if k.startswith("params/"))
+    check(resumed[0] == "resumed from step 10", f"train CLI: first line {resumed[0]!r}")
+    loss_r, loss_w = final_loss(resumed), final_loss(whole)
+    moe, t4 = run_cli("train", "--arch", MOE_ARCH, "--smoke", "--steps", "10")
+    serve_lines, t5 = run_cli("serve", "--arch", LM_ARCH)
+    rec = {"first": first[-1], "resumed": resumed, "uninterrupted_final": whole[-2:],
+           "final_loss_resumed": loss_r, "final_loss_uninterrupted": loss_w,
+           "final_params_max_abs_diff": param_err, "tol": RESUME_TOL,
+           "moe_smoke": moe[-2:], "serve_smoke": serve_lines,
+           "seconds": [t1, t2, t3, t4, t5]}
+    emit({"phase": "train_cli", **rec})
+    # the printed losses carry 4 decimals: one unit of the last is allowed
+    check(abs(loss_r - loss_w) <= RESUME_TOL + 1e-9,
+          f"train CLI: resumed final loss {loss_r} vs uninterrupted {loss_w}")
+    check(finite(final_loss(moe)), f"train CLI (MoE): final loss {moe[-1]!r}")
+    check(len(serve_lines) == 3 and serve_lines[2].startswith("sample continuation ids"),
+          f"serve CLI: {serve_lines}")
+    return rec
+
+
+def moe_layer_hold():
+    """``_moe`` at granite's full layer width (T 4,096, d 1536, 40 experts,
+    top-8, d_ff 512) on the card and on the CPU in f32, TF32 off: output and
+    the gradients of the input and of each weight within 1e-4 of each
+    tensor's max."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+    import dataclasses
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(MOE_ARCH).full_config(), dtype=torch.float32)
+    rng = np.random.default_rng(14)
+    d, e, ff = cfg.d_model, cfg.n_experts, cfg.d_ff
+    arrays = {"h": rng.standard_normal((MOE_TOKENS, d), dtype=np.float32),
+              "router": rng.standard_normal((d, e), dtype=np.float32) * d ** -0.5,
+              "w_gate": rng.standard_normal((e, d, ff), dtype=np.float32) * d ** -0.5,
+              "w_up": rng.standard_normal((e, d, ff), dtype=np.float32) * d ** -0.5,
+              "w_down": rng.standard_normal((e, ff, d), dtype=np.float32) * ff ** -0.5}
+    grad_out = torch.from_numpy(rng.standard_normal((MOE_TOKENS, d), dtype=np.float32))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t = {k: torch.from_numpy(a).to(dev).requires_grad_() for k, a in arrays.items()}
+        out = tfm._moe(t["h"], {k: v for k, v in t.items() if k != "h"}, cfg)
+        grads = torch.autograd.grad(out, list(t.values()), grad_out.to(dev))
+        res[dev] = [out.detach().cpu()] + [g.cpu() for g in grads]
+    names = ["out"] + [f"d_{k}" for k in arrays]
+    errs = {n: rel_to_max(a, b) for n, a, b in zip(names, res["cuda"], res["cpu"])}
+    rec = {"tokens": MOE_TOKENS, "d_model": d, "experts": e, "top_k": cfg.top_k, "d_ff": ff,
+           "rel_to_max": errs, "tol": MOE_TOL}
+    emit({"phase": "moe_layer", **rec})
+    check(all(x <= MOE_TOL for x in errs.values()), f"moe_layer: card vs CPU {errs}")
+    return rec
+
+
+def phase_moe_full():
+    """granite-moe-3b-a800m's ``full_config()``: two train steps at 1 × 2048
+    (finite losses, the peak recorded), then ``serve()`` at batch 2, prompt
+    2048, 16 tokens on the trained weights (finite logits, no padded column
+    wins).  Returns the kernel's launches (train, serve)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.lm_common import make_lm_train_step
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels.flash_attention import launches, reset_launches
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import constant
+
+    cfg = get_arch(MOE_ARCH).full_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tfm.init_params(cfg, LM_SEED, device="cuda")
+    step_fn, opt_init = make_lm_train_step(cfg, accum=1, lr=constant(TRAIN_LR))
+    opt_state = opt_init(params)
+    reset_launches()
+    losses, walls = [], []
+    for i in range(2):
+        b = lm_batch(0, i, 1, MOE_TRAIN_SEQ, cfg.vocab_size)
+        batch = {k: torch.from_numpy(v)[None].to("cuda") for k, v in b.items()}
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+    train_launches = launches["flash_attention"]
+    train_peak = torch.cuda.max_memory_allocated()
+    del opt_state, m
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(MOE_BATCH, MOE_PROMPT), dtype=np.int64))
+    reset_launches()
+    toks, t = serve(cfg, params, prompts, MOE_GEN)
+    serve_launches = launches["flash_attention"]
+    last, kv = tfm.prefill(params, prompts, cfg)
+    del kv
+    rec = {"arch": MOE_ARCH, "n_params": cfg.n_params(), "n_active_params": cfg.n_active_params(),
+           "train_seq": MOE_TRAIN_SEQ, "losses": losses, "step_walls_s": walls,
+           "train_peak_device_bytes": train_peak, "train_launches": train_launches,
+           "serve_batch": MOE_BATCH, "prompt": MOE_PROMPT, "gen": MOE_GEN,
+           "prefill_ms": t["prefill_s"] * 1e3, "decode_ms_per_step": t["decode_s"] * 1e3 /
+           t["decode_steps"], "serve_peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "serve_launches": serve_launches, "sample": toks[0, :8].tolist()}
+    emit({"phase": "moe_full", **rec})
+    check(all(finite(x) for x in losses), f"moe_full: losses {losses}")
+    check(train_launches == 2 * cfg.n_layers * 2,
+          f"moe_full: {train_launches} kernel launches in 2 train steps")
+    check(serve_launches == cfg.n_layers, f"moe_full: {serve_launches} launches per prefill")
+    check(bool(torch.isfinite(last[:, :cfg.vocab_size]).all()), "moe_full: non-finite logits")
+    check(bool((last.argmax(-1) < cfg.vocab_size).all()), "moe_full: a padded vocab column won")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "moe_full: token outside the vocab")
+    del params, last
+    torch.cuda.empty_cache()
+    return train_launches, serve_launches, rec
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2941,6 +3402,11 @@ def main() -> int:
     fa_err, fa_cases = phase_attention_kernel()
     fa_launches, _ = phase_lm_serve(rate)
     fa_time = phase_attention_timing(rate)
+    phase_train_attention(rate)
+    train_launches, _ = phase_lm_train()
+    phase_train_cli()
+    moe_layer_hold()
+    moe_train_launches, moe_serve_launches, _ = phase_moe_full()
 
     kernels = []
     for k in CSR_KERNELS:
@@ -2982,8 +3448,13 @@ def main() -> int:
         "plain_ms": fa_time["plain_ms"], "bound_ms": fa_time["bound_ms"],
         "bound_by": fa_time["bound_by"], "library_ms": fa_time["library_ms"],
         "checked_cases": fa_cases, "shape": fa_time["shape"], "on_main_path": True,
+        # phase 13's 6 qwen2-1.5b train steps (112 a step); phase 14's granite
+        # MoE: 2 train steps and one serve
+        "train_launches": train_launches, "moe_train_launches": moe_train_launches,
+        "moe_serve_launches": moe_serve_launches,
     })
     check(fa_launches > 0, "flash_attention was not launched on the serving path")
+    check(train_launches > 0, "flash_attention was not launched on the training path")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "nvidia_smi": smi_line})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,10 +10,13 @@ the other.  Layout::
         arrays.npz        # one entry per leaf, key = flattened tree path
         COMMIT            # written last; a checkpoint without it is torn
 
-A tree is a nest of ``dict`` / ``list`` / ``tuple`` whose leaves are
-numpy arrays, scalars or torch tensors; ``None`` holds no leaf.  Leaf
-keys are the reference's (``jax.tree_util`` paths): dict keys in sorted
-order and sequence positions, joined with ``/``.
+A tree is a nest of ``dict`` / ``list`` / ``tuple`` / ``NamedTuple``
+whose leaves are numpy arrays, scalars or torch tensors; ``None`` holds
+no leaf.  Leaf keys are the reference's (``jax.tree_util`` paths): dict
+keys in sorted order, sequence positions and NamedTuple fields as
+``.name``, joined with ``/`` — so ``{"opt": OptState(...)}`` has the keys
+``opt/.step``, ``opt/.mu/...``, and a train state moves between the
+packages.
 
 Fault-tolerance contract (the serving layer's snapshot/restore path
 depends on it):
@@ -33,7 +36,7 @@ depends on it):
 * Torch tensors are copied to host numpy at save; a tensor leaf of the
   restore target comes back as a tensor of its dtype on its device.
   ``shardings=`` (restoring onto the LM train step's sharded mesh) is
-  held for ROADMAP A7 and raises.
+  held for ROADMAP A7b and raises.
 * ``CheckpointManager(async_save=True)`` snapshots to host memory
   synchronously and writes in a background thread (one in-flight save).
   ``save``/``wait`` are thread-safe, background errors surface on the
@@ -70,7 +73,7 @@ FORMAT_VERSION = 2
 
 _SHARDINGS_NOT_PORTED = (
     "restoring onto a device mesh (shardings=) is not yet ported to "
-    "repro_torch (ROADMAP A7: the LM train step's sharding); use the JAX "
+    "repro_torch (ROADMAP A7b: the LM train step's sharding); use the JAX "
     "package repro for it"
 )
 
@@ -81,6 +84,11 @@ def _map_leaves(tree, fn, prefix=()):
         return None
     if isinstance(tree, dict):
         return {k: _map_leaves(tree[k], fn, prefix + (k,)) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        # a NamedTuple (the optimizer's OptState): jax keys its fields by
+        # GetAttrKey, which renders as ".name"
+        return type(tree)(*(_map_leaves(getattr(tree, f), fn, prefix + ("." + f,))
+                            for f in tree._fields))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map_leaves(v, fn, prefix + (i,)) for i, v in enumerate(tree))
     return fn(prefix, tree)

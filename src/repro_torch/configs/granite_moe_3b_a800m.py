@@ -1,8 +1,4 @@
-"""granite-moe-3b-a800m [hf:ibm-granite]: 32L, d=1536, 24H (kv=8), MoE 40e top-8.
-
-The MoE layer is not ported yet: the port's model raises for this arch
-(ROADMAP queue A item 7).
-"""
+"""granite-moe-3b-a800m [hf:ibm-granite]: 32L, d=1536, 24H (kv=8), MoE 40e top-8."""
 from repro_torch.models.transformer import TransformerConfig
 
 from .lm_common import LM_SHAPES, lm_smoke_config

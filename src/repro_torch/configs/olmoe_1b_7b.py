@@ -1,8 +1,4 @@
-"""OLMoE-1B-7B [arXiv:2409.02060]: 16L, d=2048, 16H (kv=16), MoE 64e top-8.
-
-The MoE layer is not ported yet: the port's model raises for this arch
-(ROADMAP queue A item 7).
-"""
+"""OLMoE-1B-7B [arXiv:2409.02060]: 16L, d=2048, 16H (kv=16), MoE 64e top-8."""
 from repro_torch.models.transformer import TransformerConfig
 
 from .lm_common import LM_SHAPES, lm_smoke_config

@@ -1,5 +1,5 @@
 """Distributed runtime of the port: the device mesh, wire compression,
-stripe skew, and (held for ROADMAP A7) the LM sharding rules.
+stripe skew, and (held for ROADMAP A7b) the LM sharding rules.
 
 The reference's names are all exported; those of the LM train step
 (``ShardingRules``, ``make_param_shardings``, ``spec_for``, ``LM_RULES``,

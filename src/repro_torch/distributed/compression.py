@@ -14,7 +14,7 @@ families live in the reference:
   is stored and copied, and is widened to int32 before it is decoded.
 * **Lossy int8 gradient compression** for the data-parallel all-reduce of
   the LM train step (``compressed_psum``, ``compress_grads``,
-  ``make_error_feedback_state``): held for ROADMAP A7, and each raises.
+  ``make_error_feedback_state``): held for ROADMAP A7b, and each raises.
 """
 from __future__ import annotations
 
@@ -37,23 +37,23 @@ __all__ = [
 INT32_MAX = 2**31 - 1
 
 _HELD_FOR_A7 = (
-    "is not yet ported to repro_torch (ROADMAP A7: the int8 gradient "
+    "is not yet ported to repro_torch (ROADMAP A7b: the int8 gradient "
     "all-reduce of the train step); use the JAX package repro for it"
 )
 
 
 def compressed_psum(x, axis_name):
-    """Held for ROADMAP A7: raises."""
+    """Held for ROADMAP A7b: raises."""
     raise NotImplementedError("compressed_psum " + _HELD_FOR_A7)
 
 
 def make_error_feedback_state(grads):
-    """Held for ROADMAP A7: raises."""
+    """Held for ROADMAP A7b: raises."""
     raise NotImplementedError("make_error_feedback_state " + _HELD_FOR_A7)
 
 
 def compress_grads(grads, ef_state, axis_name):
-    """Held for ROADMAP A7: raises."""
+    """Held for ROADMAP A7b: raises."""
     raise NotImplementedError("compress_grads " + _HELD_FOR_A7)
 
 

@@ -1,4 +1,4 @@
-"""LM parameter sharding rules: held for ROADMAP A7.
+"""LM parameter sharding rules: held for ROADMAP A7b.
 
 The counterpart of ``repro.distributed.sharding`` (the regex-path →
 ``PartitionSpec`` rules of the LM train step) arrives with the training
@@ -10,7 +10,7 @@ from __future__ import annotations
 __all__ = ["ShardingRules", "make_param_shardings", "spec_for", "LM_RULES"]
 
 _HELD_FOR_A7 = (
-    "is not yet ported to repro_torch (ROADMAP A7: the LM parameter "
+    "is not yet ported to repro_torch (ROADMAP A7b: the LM parameter "
     "sharding of the train step); use the JAX package repro for it"
 )
 
@@ -30,7 +30,7 @@ class _HeldForA7:
         raise NotImplementedError(f"{self._name}.{attr} {_HELD_FOR_A7}")
 
     def __repr__(self) -> str:
-        return f"<{self._name}: not yet ported (ROADMAP A7)>"
+        return f"<{self._name}: not yet ported (ROADMAP A7b)>"
 
 
 ShardingRules = _HeldForA7("ShardingRules")

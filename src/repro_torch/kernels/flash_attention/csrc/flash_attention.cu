@@ -56,9 +56,10 @@
 //   epilogue of each block are not overlapped with another block's work)
 //   and a TMA store of O.
 //
-// f32 (off the serving path): scalar f32 FMAs over shared memory (the
-// tensor cores would round f32 inputs to TF32); scores, probabilities and
-// the accumulator live in shared memory.
+// f32 (off the serving path; the smoke configs' D = 16 runs only here):
+// scalar f32 FMAs over shared memory (the tensor cores would round f32
+// inputs to TF32); scores, probabilities and the accumulator live in shared
+// memory.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -511,16 +512,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
 }
 
 template <int D>
-cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v, void* o, int b,
-                     int hq, int hkv, int sq, int skv, int bq, int bk, float scale, int causal,
-                     cudaStream_t stream) {
-  if (dtype == 1) {
-    if (bq == 64)
-      return bk == 64 ? launch_bf16<D, 1, 64>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, stream)
-                      : launch_bf16<D, 1, 128>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, stream);
-    return bk == 64 ? launch_bf16<D, 2, 64>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, stream)
-                    : launch_bf16<D, 2, 128>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, stream);
-  }
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int b, int hq,
+                       int hkv, int sq, int skv, int bq, int bk, float scale, int causal,
+                       cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(D, bq, bk);
   cudaError_t err = allow_smem(fa_fwd_f32<D>, smem);
   if (err != cudaSuccess) return err;
@@ -529,6 +523,18 @@ cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v, voi
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), hq, hkv, sq, skv, bq, bk, scale, causal);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v, void* o, int b,
+                     int hq, int hkv, int sq, int skv, int bq, int bk, float scale, int causal,
+                     cudaStream_t stream) {
+  if (dtype == 0) return launch_f32<D>(q, k, v, o, b, hq, hkv, sq, skv, bq, bk, scale, causal, stream);
+  if (bq == 64)
+    return bk == 64 ? launch_bf16<D, 1, 64>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, stream)
+                    : launch_bf16<D, 1, 128>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, stream);
+  return bk == 64 ? launch_bf16<D, 2, 64>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, stream)
+                  : launch_bf16<D, 2, 128>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, stream);
 }
 
 }  // namespace
@@ -542,19 +548,22 @@ size_t fa_smem_bytes(int dtype, int d, int block_q, int block_k) {
 }
 
 // q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D), o (B, Hq, Sq, D), all contiguous and
-// 16-byte aligned.  bf16: block_q ∈ {64, 128}, block_k ∈ {64, 128}.
-// f32: block_q a multiple of 16 in [16, 128], block_k a multiple of 64.
-// Returns the launch's cudaError_t (0 on success).
+// 16-byte aligned.  D ∈ {32, 64, 128}, and 16 in f32 only (the wgmma tiles of
+// the bf16 kernel assume D ≥ 32).  bf16: block_q ∈ {64, 128}, block_k ∈
+// {64, 128}.  f32: block_q a multiple of 16 in [16, 128], block_k a multiple
+// of 64.  Returns the launch's cudaError_t (0 on success).
 int fa_forward_launch(int dtype, int d, const void* q, const void* k, const void* v, void* o,
                       int b, int hq, int hkv, int sq, int skv, int block_q, int block_k,
                       float scale, int causal, void* stream) {
-  if ((dtype != 0 && dtype != 1) || (d != 32 && d != 64 && d != 128) ||
-      !blocks_ok(dtype, block_q, block_k) || hkv <= 0 || hq % hkv ||
-      smem_bytes(dtype, d, block_q, block_k) > kMaxSmem)
+  const bool d_ok = d == 32 || d == 64 || d == 128 || (d == 16 && dtype == 0);
+  if ((dtype != 0 && dtype != 1) || !d_ok || !blocks_ok(dtype, block_q, block_k) || hkv <= 0 ||
+      hq % hkv || smem_bytes(dtype, d, block_q, block_k) > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || hq == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
+    // f32 only: launch_d<16> would instantiate the bf16 configurations
+    case 16: return (int)launch_f32<16>(q, k, v, o, b, hq, hkv, sq, skv, block_q, block_k, scale, causal, s);
     case 32: return (int)launch_d<32>(dtype, q, k, v, o, b, hq, hkv, sq, skv, block_q, block_k, scale, causal, s);
     case 64: return (int)launch_d<64>(dtype, q, k, v, o, b, hq, hkv, sq, skv, block_q, block_k, scale, causal, s);
     default: return (int)launch_d<128>(dtype, q, k, v, o, b, hq, hkv, sq, skv, block_q, block_k, scale, causal, s);

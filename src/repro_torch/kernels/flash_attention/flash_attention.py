@@ -4,7 +4,10 @@ The Hopper counterpart of the JAX package's Pallas kernel
 ``flash_attention_pallas``: one block per (batch·head, q tile), the kv
 sweep a loop inside the block, the softmax state in f32.  bf16 runs a
 warp-specialised kernel (a TMA producer warp feeding a ring of K/V
-tiles to one or two ``wgmma`` consumer warpgroups); f32 runs scalar FMAs.
+tiles to one or two ``wgmma`` consumer warpgroups) at head dims 32, 64
+and 128; f32 runs scalar FMAs at head dims 16 to 128.  Training wraps the
+kernel in :class:`.ops.KernelAttention` (its backward is the plain
+version's).
 
 :func:`flash_attention_cuda` checks its inputs, allocates the output,
 launches on the current stream, raises on a nonzero ``cudaError_t``,
@@ -28,6 +31,7 @@ __all__ = [
     "reset_launches",
     "DEFAULT_BLOCKS",
     "HEAD_DIMS",
+    "F32_HEAD_DIMS",
 ]
 
 # raised by one at each launch of the kernel, under _launches_lock (callers
@@ -42,7 +46,10 @@ _launches_lock = threading.Lock()
 DEFAULT_BLOCKS = {torch.bfloat16: (128, 128), torch.float32: (64, 64)}
 BF16_BLOCK_Q = (64, 128)
 BF16_BLOCK_K = (64, 128)
+# head dims of the bf16 kernel; f32 also takes 16 (the smoke configs', whose
+# d_model 64 over 4 heads), which the bf16 wgmma tiles do not
 HEAD_DIMS = (32, 64, 128)
+F32_HEAD_DIMS = (16, *HEAD_DIMS)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232448     # bytes of shared memory one block may use on Hopper
 _MAX_GRID_Y = 65535
@@ -78,8 +85,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"k and v differ in shape ({tuple(k.shape)} vs {tuple(v.shape)})")
     if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} is not supported; expected one of {HEAD_DIMS}")
+    if q.dtype == torch.float32 and d not in F32_HEAD_DIMS:
+        raise ValueError(f"head dim {d} is not supported in float32; expected one of "
+                         f"{F32_HEAD_DIMS}")
+    if q.dtype == torch.bfloat16 and d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} is not supported in bfloat16; expected one of "
+                         f"{HEAD_DIMS} (16 runs in float32 only)")
     hkv = k.shape[1]
     if hkv == 0 or hq % hkv:
         raise ValueError(f"query heads {hq} are not a multiple of kv heads {hkv}")

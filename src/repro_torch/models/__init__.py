@@ -1,4 +1,4 @@
-"""Model zoo of the port: the LM transformer's serving half (dense archs)."""
+"""Model zoo of the port: the LM transformer (the five LM archs, MoE included)."""
 from . import attention, transformer
 from .transformer import TransformerConfig
 

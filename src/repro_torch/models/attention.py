@@ -25,7 +25,7 @@ __all__ = [
 ]
 
 _NEG_INF = -1e30
-_NOT_PORTED = "is not yet ported (ROADMAP A7: the int8 KV cache); use the JAX package repro for it"
+_NOT_PORTED = "is not yet ported (ROADMAP A7b: the int8 KV cache); use the JAX package repro for it"
 
 
 def rope(positions: torch.Tensor, d_head: int, theta: float = 10000.0):

@@ -1,5 +1,6 @@
 """Port parity: the LM serving path of ``repro_torch`` against the JAX package.
 
+Dense (qwen2, llama3.2) and MoE (olmoe, granite) archs alike.
 The reference's parameters (``init_params(PRNGKey(0))``) are carried
 across as numpy arrays with ``params_from_numpy``; the same numpy tokens
 then go through both packages' ``forward``, ``prefill``, ``decode_step``
@@ -28,7 +29,8 @@ from repro_torch.kernels.flash_attention import launches, reset_launches  # noqa
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 
-ARCHS = ["qwen2-1.5b", "llama3.2-3b"]
+DENSE = ["qwen2-1.5b", "llama3.2-3b"]
+ARCHS = DENSE + ["olmoe-1b-7b", "granite-moe-3b-a800m"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 _DT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
@@ -42,8 +44,25 @@ def carried(arch):
     return cfg, params, jcfg, jparams
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The smoke models' ops are tiny: torch's thread pool costs more than
+    it saves here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def models(request):
+    return carried(request.param)
+
+
+@pytest.fixture(scope="module", params=DENSE)
+def dense_models(request):
+    """The serving loop's archs (the MoE layer's serving parity is held by
+    forward, prefill and decode above)."""
     return carried(request.param)
 
 
@@ -109,8 +128,8 @@ def test_decode_step_matches_reference(models, toks):
     np.testing.assert_allclose(logits.numpy(), full[:, -1].numpy(), rtol=3e-4, atol=3e-4)
 
 
-def test_serve_matches_reference_greedy_loop(models):
-    cfg, params, jcfg, jparams = models
+def test_serve_matches_reference_greedy_loop(dense_models):
+    cfg, params, jcfg, jparams = dense_models
     prompts = np.random.default_rng(7).integers(0, cfg.vocab_size, size=(3, 16)).astype(np.int32)
     gen = 6
     toks, timings = serve_cli.serve(cfg, params, torch.from_numpy(prompts), gen)
@@ -130,8 +149,8 @@ def test_serve_matches_reference_greedy_loop(models):
     np.testing.assert_array_equal(toks.numpy(), np.asarray(jnp.stack(want, axis=1)))
 
 
-def test_cpu_serving_never_builds_the_kernel(models, monkeypatch):
-    cfg, params, _, _ = models
+def test_cpu_serving_never_builds_the_kernel(dense_models, monkeypatch):
+    cfg, params, _, _ = dense_models
 
     def refuse():
         raise AssertionError("the CPU path tried to build or load the CUDA library")
@@ -155,7 +174,7 @@ def test_init_params_shapes_and_seed():
     assert len(a.layers) == cfg.n_layers
     assert torch.equal(a.layers[1].w_down, b.layers[1].w_down)
     assert torch.equal(a.layers[0].bq, torch.zeros_like(a.layers[0].bq))
-    assert not any(p.requires_grad for p in a.parameters())
+    assert all(p.requires_grad for p in a.parameters())  # trainable f32 masters
 
 
 def test_serve_cli_on_cpu(monkeypatch, capsys):
@@ -181,23 +200,12 @@ def test_serve_cli_without_a_card_stops(monkeypatch, capsys):
         tfm.init_params(REGISTRY["qwen2-1.5b"].smoke_config(), 0)
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
-def test_moe_is_not_ported(arch):
-    cfg = REGISTRY[arch].smoke_config()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfm.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfm.forward(None, torch.zeros((1, 4), dtype=torch.int32), cfg)
-
-
 def test_kv_quant_loss_and_other_archs_are_not_ported():
     cfg = dataclasses.replace(REGISTRY["llama3.2-3b"].smoke_config(), kv_quant=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tfm.init_kv_cache(cfg, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tfm.decode_step(None, torch.zeros((1,), dtype=torch.int32), 0, None, cfg)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfm.loss_fn(None, {}, cfg)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tfm.init_kv_cache_int8(cfg, 1, 8)
     with pytest.raises(NotImplementedError, match="not yet ported"):
