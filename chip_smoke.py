@@ -4,8 +4,9 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --cards``, on a machine with several cards, runs
-only phase 8i's kron-21 checks over all of them: ``main_cards``.)
+(``python3 chip_smoke.py --cards``, on a machine with four or more cards,
+runs only phase 8i's kron-21 checks over all of them and phase 16's
+sharded step at full depth over four: ``main_cards``.)
 
 Phases, each of which fails loudly (non-zero exit, no final line):
 
@@ -153,7 +154,30 @@ Phases, each of which fails loudly (non-zero exit, no final line):
              (attention zeroed, a dropped kv tile) that must fail there;
              torch.profiler readings of the prefill and of the decode steps;
 11. attention timing — the kernel at the serving shape against its bound,
-             its plain version and ``scaled_dot_product_attention``.
+             its plain version and ``scaled_dot_product_attention``;
+12. train_attention — the kernel under autograd (``KernelAttention``: the
+             kernel forward, the plain backward) against autograd through the
+             plain version at qwen2-1.5b's training shape;
+13. lm_train — qwen2-1.5b at full width trained 6 steps (accum 2 × 2 ×
+             4096), and a reduced qwen2 held against the CPU;
+14. train_cli — the train CLI's resume, granite's smoke train, the serve
+             CLI; ``_moe`` at granite's width against the CPU with a random
+             router and tied ones (columns repeated in pairs, zeros); granite
+             ``full_config()`` (depth cut to 8 layers) trained and served;
+15. kv_int8 — qwen2-1.5b at the phase-10 shape served with the int8 KV
+             cache (``kv_quant``) beside the bf16 cache: the cache stays
+             int8, its bytes, the first decode step's logits within 0.08 of
+             the bf16 cache's (relative to their max), greedy agreement,
+             decode ms/step and peaks; ``quantize_kv_token`` card vs CPU
+             bit-equal and ``decode_attention_int8`` within 1e-6 at the
+             serving decode shape;
+16. lm_sharded — ``make_lm_train_step`` sharded by the reference's rules on
+             a (2, 4) mesh of eight repeats of the card, qwen2-1.5b at full
+             width cut to 2 layers (f32, TF32 off), accum 2 × 4 × 1024, 2
+             steps, against the step on the card: parameters within 2e-3,
+             loss within 1e-4, the kernel launched once per replica for
+             each launch of the single-card step; ``compress_grads`` on the
+             card bit-equal to the CPU; elastic restore (2, 4) → (4, 2).
 
 The ``kernels`` line gives rows 1-3 an ``analytics_launches`` field: their
 launches in phases 8a-8c; the count and per-node CSR kernels also a
@@ -161,7 +185,10 @@ launches in phases 8a-8c; the count and per-node CSR kernels also a
 over 8e's 16 updates (8f runs in its own processes); and rows 1-3
 ``tuning_launches`` (8g's tuned counts, per-node and support, the sweep's
 launches included) and ``service_launches`` (8h, the CLI's excepted);
-rows 1-3 ``audit_traces``: their new launch signatures in 8j's two runs.
+rows 1-3 ``audit_traces``: their new launch signatures in 8j's two runs;
+row 4 (flash attention) ``train_launches`` (13), ``moe_train_launches``
+and ``moe_serve_launches`` (14), ``kv_int8_launches`` (15's two timed
+serves) and ``sharded_train_launches`` (16).
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.
 """
@@ -264,7 +291,13 @@ TRAIN_ACCUM, TRAIN_MICRO, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2, 4096, 6, 3e-5
 TRAIN_HOLD_TOL = 1e-4
 # phase 14: granite's MoE layer at full width (T tokens), card vs CPU in f32
 MOE_TOKENS, MOE_TOL = 4096, 1e-4
+# the tied routers (ties on every token) run on the first 1,024 tokens: the
+# CPU side of each check costs seconds per thousand tokens
+MOE_TIED_TOKENS = 1024
 MOE_ARCH = "granite-moe-3b-a800m"
+# granite's depth in phase 14, cut from 32 layers to keep the script inside
+# its time limit; every layer is at full width (40 experts, d_model 1536)
+MOE_LAYERS = 8
 MOE_BATCH, MOE_PROMPT, MOE_GEN, MOE_TRAIN_SEQ = 2, 2048, 16, 2048
 # the train CLI's resumed run against an uninterrupted one (index_add's
 # atomics in the embedding and MoE backward reorder sums on the card)
@@ -272,6 +305,23 @@ RESUME_TOL = 1e-4
 # decode step 1 against forward(prompt + token)[:, -1], f32 on both sides
 # (rtol, atol as the reference's smoke-size test)
 DECODE_TOL = 3e-4
+# phase 15: the int8 KV cache at the phase-10 shape.  The first decode
+# step's logits against the bf16 cache's, relative to their max (the
+# reference's gate, tests/test_models_lm.py::test_int8_kv_decode_matches_fp);
+# quantize_kv_token card vs CPU bit-equal, decode_attention_int8 within
+# KV_DECODE_REL of the CPU's output's max
+KV_LOGITS_REL, KV_DECODE_REL = 0.08, 1e-6
+# phase 16: the sharded train step on a (2, 4) mesh of eight repeats of the
+# card, qwen2-1.5b at full width cut to 2 layers, f32 compute with TF32 off
+# (the gates compare the step's arithmetic, which bf16 rounding would blur;
+# phase 13 trains in bf16): accum 2 × microbatch 4 × 1024, 2 steps, against
+# make_lm_train_step on the card.  Parameters within the reference test's
+# 2e-3 (rtol and atol), the loss within 1e-4, gnorm 1e-4 relative.
+SHARD_MESH, SHARD_LAYERS, SHARD_ACCUM, SHARD_MICRO, SHARD_SEQ, SHARD_STEPS = \
+    (2, 4), 2, 2, 4, 1024, 2
+SHARD_PARAM_TOL, SHARD_LOSS_TOL, SHARD_GNORM_REL = 2e-3, 1e-4, 1e-4
+# --cards: the full 28-layer qwen2-1.5b sharded step on a (2, 2) mesh of 4 cards
+CARDS_MESH = (2, 2)
 # prefill logits through the kernel against the plain attention, bf16: the
 # plain version rounds scores to bf16 and the kernel does not, and 28 layers
 # carry the difference; bounded as a relative L2 error of the last logits,
@@ -3227,7 +3277,9 @@ def moe_layer_hold():
     """``_moe`` at granite's full layer width (T 4,096, d 1536, 40 experts,
     top-8, d_ff 512) on the card and on the CPU in f32, TF32 off: output and
     the gradients of the input and of each weight within 1e-4 of each
-    tensor's max."""
+    tensor's max; with a random router, and with tied ones (columns
+    repeated in pairs; zeros), where the stable sort must put the lower
+    expert first on the card as on the CPU."""
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tfm
     import dataclasses
@@ -3242,23 +3294,33 @@ def moe_layer_hold():
               "w_up": rng.standard_normal((e, d, ff), dtype=np.float32) * d ** -0.5,
               "w_down": rng.standard_normal((e, ff, d), dtype=np.float32) * ff ** -0.5}
     grad_out = torch.from_numpy(rng.standard_normal((MOE_TOKENS, d), dtype=np.float32))
-    res = {}
-    for dev in ("cuda", "cpu"):
-        t = {k: torch.from_numpy(a).to(dev).requires_grad_() for k, a in arrays.items()}
-        out = tfm._moe(t["h"], {k: v for k, v in t.items() if k != "h"}, cfg)
-        grads = torch.autograd.grad(out, list(t.values()), grad_out.to(dev))
-        res[dev] = [out.detach().cpu()] + [g.cpu() for g in grads]
+    routers = {"random": arrays["router"],
+               "pairs": np.repeat(arrays["router"][:, :e // 2], 2, axis=1),
+               "zeros": np.zeros_like(arrays["router"])}
     names = ["out"] + [f"d_{k}" for k in arrays]
-    errs = {n: rel_to_max(a, b) for n, a, b in zip(names, res["cuda"], res["cpu"])}
-    rec = {"tokens": MOE_TOKENS, "d_model": d, "experts": e, "top_k": cfg.top_k, "d_ff": ff,
+    errs = {}
+    for label, router in routers.items():
+        n = MOE_TOKENS if label == "random" else MOE_TIED_TOKENS
+        res = {}
+        for dev in ("cuda", "cpu"):
+            t = {k: torch.from_numpy(router if k == "router" else a[:n] if k == "h" else a)
+                 .to(dev).requires_grad_() for k, a in arrays.items()}
+            out = tfm._moe(t["h"], {k: v for k, v in t.items() if k != "h"}, cfg)
+            grads = torch.autograd.grad(out, list(t.values()), grad_out[:n].to(dev))
+            res[dev] = [out.detach().cpu()] + [g.cpu() for g in grads]
+        errs[label] = {n: rel_to_max(a, b) for n, a, b in zip(names, res["cuda"], res["cpu"])}
+    rec = {"tokens": MOE_TOKENS, "tied_tokens": MOE_TIED_TOKENS, "d_model": d, "experts": e,
+           "top_k": cfg.top_k, "d_ff": ff,
            "rel_to_max": errs, "tol": MOE_TOL}
     emit({"phase": "moe_layer", **rec})
-    check(all(x <= MOE_TOL for x in errs.values()), f"moe_layer: card vs CPU {errs}")
+    check(all(x <= MOE_TOL for r in errs.values() for x in r.values()),
+          f"moe_layer: card vs CPU {errs}")
     return rec
 
 
 def phase_moe_full():
-    """granite-moe-3b-a800m's ``full_config()``: two train steps at 1 × 2048
+    """granite-moe-3b-a800m's ``full_config()`` at full width, its depth cut
+    to ``MOE_LAYERS``: two train steps at 1 × 2048
     (finite losses, the peak recorded), then ``serve()`` at batch 2, prompt
     2048, 16 tokens on the trained weights (finite logits, no padded column
     wins).  Returns the kernel's launches (train, serve)."""
@@ -3270,7 +3332,9 @@ def phase_moe_full():
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import constant
 
-    cfg = get_arch(MOE_ARCH).full_config()
+    import dataclasses
+
+    cfg = dataclasses.replace(get_arch(MOE_ARCH).full_config(), n_layers=MOE_LAYERS)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = tfm.init_params(cfg, LM_SEED, device="cuda")
@@ -3297,7 +3361,8 @@ def phase_moe_full():
     serve_launches = launches["flash_attention"]
     last, kv = tfm.prefill(params, prompts, cfg)
     del kv
-    rec = {"arch": MOE_ARCH, "n_params": cfg.n_params(), "n_active_params": cfg.n_active_params(),
+    rec = {"arch": MOE_ARCH, "layers": cfg.n_layers, "n_params": cfg.n_params(),
+           "n_active_params": cfg.n_active_params(),
            "train_seq": MOE_TRAIN_SEQ, "losses": losses, "step_walls_s": walls,
            "train_peak_device_bytes": train_peak, "train_launches": train_launches,
            "serve_batch": MOE_BATCH, "prompt": MOE_PROMPT, "gen": MOE_GEN,
@@ -3318,13 +3383,334 @@ def phase_moe_full():
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the int8 KV cache
+# ---------------------------------------------------------------------------
+
+
+def kv_int8_functions_hold():
+    """``quantize_kv_token`` and ``decode_attention_int8`` on the card
+    against the CPU on the same CPU-made inputs at the serving decode shape
+    (q (4, 12, 1, 128), K/V (4, 2, 2080, 128)), with a scalar and a (B,)
+    ``cache_len``: payloads and scales bit-equal, the output within
+    ``KV_DECODE_REL`` of the CPU output's max."""
+    from repro_torch.models.attention import decode_attention_int8, quantize_kv_token
+
+    rng = np.random.default_rng(15)
+    s = LM_PROMPT + LM_GEN
+    q = torch.from_numpy(rng.standard_normal((LM_BATCH, 12, 1, 128), dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((LM_BATCH, 2, s, 128), dtype=np.float32))
+            for _ in range(2))
+    lens = torch.tensor([s, 1, 1000, 2049], dtype=torch.int32)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        cache = quantize_kv_token(k.to(dev), v.to(dev))
+        outs = [decode_attention_int8(q.to(dev), *cache, cache_len=cl)
+                for cl in (s, lens.to(dev))]
+        res[dev] = [t.cpu() for t in (*cache, *outs)]
+    payload_equal = all(torch.equal(a, b) for a, b in zip(res["cuda"][:4], res["cpu"][:4]))
+    errs = [rel_to_max(a, b) for a, b in zip(res["cuda"][4:], res["cpu"][4:])]
+    rec = {"payloads_scales_bit_equal": payload_equal, "decode_rel_to_max": errs,
+           "tol": KV_DECODE_REL, "shape_q": list(q.shape), "shape_kv": list(k.shape)}
+    emit({"phase": "kv_int8_functions", **rec})
+    check(payload_equal, "kv_int8: quantize_kv_token card vs CPU not bit-equal")
+    check(max(errs) <= KV_DECODE_REL,
+          f"kv_int8: decode_attention_int8 card vs CPU {errs} > {KV_DECODE_REL}")
+    return rec
+
+
+def phase_kv_int8():
+    """qwen2-1.5b's ``full_config()`` at the phase-10 shape served with the
+    int8 KV cache (``kv_quant=True``: the prefill's K/V quantized per token,
+    decode through the int8 dots) beside the bf16 cache: the cache's dtype
+    and bytes, the first step's logits against the bf16 cache's, the greedy
+    agreement, decode ms/step and the peak of each.  Returns the kernel's
+    launches in the two timed serves."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import launches, reset_launches
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.attention import quantize_kv_token
+
+    cfg = get_arch(LM_ARCH).full_config()
+    cfgq = dataclasses.replace(cfg, kv_quant=True)
+    torch.cuda.empty_cache()
+    params = tfm.init_params(cfg, LM_SEED, device="cuda")
+    prompts = torch.from_numpy(np.random.default_rng(2407).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT), dtype=np.int64))
+    max_len = LM_PROMPT + LM_GEN
+    cache_q = tfm.init_kv_cache_int8(cfgq, LM_BATCH, max_len, device="cuda")
+    cache_b = tfm.init_kv_cache(cfg, LM_BATCH, max_len, device="cuda")
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    bytes_q, bytes_b = nbytes(cache_q), nbytes(cache_b)
+    dtypes = [str(t.dtype) for t in cache_q]
+
+    # the first decode step from the same prefill, through each cache
+    last, kv = tfm.prefill(params, prompts.cuda(), cfg)
+    nxt = last.argmax(-1).to(torch.int32)
+    for dst, src in zip(cache_b, kv):
+        dst[:, :, :, :LM_PROMPT] = src
+    for dst, src in zip(cache_q, quantize_kv_token(kv[0], kv[1])):
+        dst[:, :, :, :LM_PROMPT] = src
+    del kv, last
+    lf, _ = tfm.decode_step(params, nxt, LM_PROMPT, cache_b, cfg)
+    lq, cache_q = tfm.decode_step(params, nxt, LM_PROMPT, cache_q, cfgq)
+    real = slice(0, cfg.vocab_size)
+    rel = float((lf[:, real] - lq[:, real]).abs().max() / lf[:, real].abs().max())
+    first_agree = bool((lf.argmax(-1) == lq.argmax(-1)).all())
+    stays_int8 = cache_q[0].dtype == torch.int8 and cache_q[2].dtype == torch.int8
+    del cache_b, cache_q, lf, lq
+
+    runs, n_launch = {}, 0
+    for label, c in (("bf16", cfg), ("int8", cfgq)):
+        serve(c, params, prompts, LM_GEN)                         # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        toks, t = serve(c, params, prompts, LM_GEN)
+        n_launch += launches["flash_attention"]
+        runs[label] = {"tokens": toks.cpu(), "prefill_ms": t["prefill_s"] * 1e3,
+                       "decode_ms_per_step": t["decode_s"] * 1e3 / t["decode_steps"],
+                       "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                       "launches": launches["flash_attention"]}
+    agree = float((runs["bf16"]["tokens"] == runs["int8"]["tokens"]).float().mean())
+    rec = {"arch": LM_ARCH, "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+           "cache_dtypes": dtypes, "cache_bytes_int8": bytes_q, "cache_bytes_bf16": bytes_b,
+           "first_step_logits_rel_to_max": rel, "first_step_tol": KV_LOGITS_REL,
+           "first_step_argmax_agrees": first_agree, "greedy_agreement": agree,
+           **{f"{k}_{label}": v for label, r in runs.items() for k, v in r.items()
+              if k != "tokens"}}
+    emit({"phase": "kv_int8", **rec})
+    check(stays_int8, f"kv_int8: the cache left int8 ({dtypes})")
+    check(rel < KV_LOGITS_REL, f"kv_int8: first-step logits {rel} from the bf16 cache's")
+    check(runs["int8"]["launches"] == runs["bf16"]["launches"] == cfg.n_layers,
+          f"kv_int8: kernel launches per serve {runs['bf16']['launches']}, "
+          f"{runs['int8']['launches']}")
+    del params
+    torch.cuda.empty_cache()
+    rec["functions"] = kv_int8_functions_hold()
+    return n_launch, rec
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the sharded train step, compress_grads, elastic restore
+# ---------------------------------------------------------------------------
+
+
+def grid_mesh(devices, shape, names=("data", "model")):
+    from repro_torch.distributed import Mesh
+
+    return Mesh(np.array(devices, dtype=object).reshape(shape), names)
+
+
+def train_two_ways(cfg, mesh, accum, micro, seq, steps):
+    """``make_lm_train_step`` on one card (the mesh's lead) and sharded over
+    ``mesh`` by the reference's rules, from the same weights and batch:
+    the two runs' metrics, launches, walls and differences."""
+    from repro_torch.configs.lm_common import _opt_state_specs, _param_specs, \
+        make_lm_train_step
+    from repro_torch.data import lm_batch
+    from repro_torch.distributed import NamedSharding, P, device_put
+    from repro_torch.kernels.flash_attention import launches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import constant
+    from repro_torch.optim.optimizers import tree_leaves
+
+    lead = mesh.lead
+    raw = lm_batch(0, 0, accum * micro, seq, cfg.vocab_size)
+    batch = {k: torch.from_numpy(v).reshape(accum, micro, seq) for k, v in raw.items()}
+    step_fn, opt_init = make_lm_train_step(cfg, accum=accum, lr=constant(TRAIN_LR))
+    runs = {}
+    for label in ("single", "sharded"):
+        torch.cuda.empty_cache()
+        for d in mesh.distinct:
+            torch.cuda.reset_peak_memory_stats(d)
+        params = tfm.init_params(cfg, LM_SEED, device=lead)
+        if label == "single":
+            state, b = params, {k: v.to(lead) for k, v in batch.items()}
+        else:
+            _, psh, _ = _param_specs(cfg, mesh)
+            state = device_put(tfm.param_tree(params), psh)
+            del params
+            b = device_put(batch, {k: NamedSharding(mesh, P(None, "data", None)) for k in batch})
+        opt = opt_init(state)
+        if label == "sharded":
+            check(all(m.spec == p.spec for m, p in zip(tree_leaves(opt.mu), tree_leaves(state))),
+                  "lm_sharded: moments not laid out as their parameters")
+            check(_opt_state_specs(psh).mu is psh, "lm_sharded: _opt_state_specs")
+        metrics, walls, n0 = [], [], launches["flash_attention"]
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, opt, m = step_fn(state, opt, b)
+            for d in mesh.distinct:
+                torch.cuda.synchronize(d)
+            walls.append(time.perf_counter() - t0)
+            metrics.append((float(m["loss"]), float(m["gnorm"])))
+        leaves = tfm.param_tree(state) if label == "single" else state
+        runs[label] = {
+            "metrics": metrics, "walls_s": walls, "launches": launches["flash_attention"] - n0,
+            "peak_device_bytes": {str(d): torch.cuda.max_memory_allocated(d)
+                                  for d in mesh.distinct},
+            "params": [(x if label == "single" else x.gather(lead)).detach().cpu()
+                       for x in tree_leaves(leaves)],
+            "mu": [(x if label == "single" else x.gather(lead)).cpu()
+                   for x in tree_leaves(opt.mu)],
+        }
+        del state, opt, b, leaves
+    one, sh = runs["single"], runs["sharded"]
+    param_err = max(float(((a - b).abs() - SHARD_PARAM_TOL * b.abs()).max())
+                    for a, b in zip(sh["params"], one["params"]))
+    rec = {
+        "mesh": dict(mesh.shape), "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "accum": accum, "micro_batch": micro, "seq": seq, "steps": steps,
+        "dtype": str(cfg.dtype), "lr": TRAIN_LR,
+        "single": {k: v for k, v in one.items() if k not in ("params", "mu")},
+        "sharded": {k: v for k, v in sh.items() if k not in ("params", "mu")},
+        "param_max_abs_diff": max(float((a - b).abs().max())
+                                  for a, b in zip(sh["params"], one["params"])),
+        "param_excess_over_rtol": param_err,
+        "mu_rel_to_max": max(rel_to_max(a, b) for a, b in zip(sh["mu"], one["mu"])),
+        "loss_abs_diff": max(abs(a[0] - b[0]) for a, b in zip(sh["metrics"], one["metrics"])),
+        "gnorm_rel_diff": max(abs(a[1] - b[1]) / b[1]
+                              for a, b in zip(sh["metrics"], one["metrics"])),
+    }
+    return rec
+
+
+def compress_grads_hold(devices, shape, names, axis):
+    """``compress_grads`` over ``devices`` against the same shards on a CPU
+    mesh of that shape: 3 steps with error feedback, synchronised
+    gradients and the new state bit-equal."""
+    from repro_torch.distributed import compress_grads, make_error_feedback_state
+
+    rng = np.random.default_rng(16)
+    n = int(np.prod(shape))
+    host = [{"w": torch.from_numpy(rng.standard_normal((4096,), dtype=np.float32)),
+             "b": torch.from_numpy(rng.standard_normal((7, 33), dtype=np.float32) * 1e-3)}
+            for _ in range(n)]
+    out = {}
+    for label, devs in (("card", devices), ("cpu", ["cpu"] * n)):
+        mesh = grid_mesh(devs, shape, names)
+        shards = [{k: t.to(d) for k, t in g.items()} for g, d in zip(host, mesh.devices.flat)]
+        ef, hist = make_error_feedback_state(shards), []
+        for _ in range(3):
+            sync, ef = compress_grads(shards, ef, mesh, axis)
+            hist.append([t.cpu() for tree in sync + ef for t in (tree["b"], tree["w"])])
+        out[label] = hist
+    equal = all(torch.equal(a, b) for sa, sb in zip(out["card"], out["cpu"])
+                for a, b in zip(sa, sb))
+    return {"devices": [str(d) for d in devices], "shape": list(shape), "axis": axis,
+            "bit_equal": equal}
+
+
+def elastic_restore_hold(leaf, devices):
+    """A checkpoint of ``{"w": arange(64) (8, 8), "wq": a sharded leaf}``
+    restored onto (2, 4) and then (4, 2) meshes of ``devices``: equal
+    values, the mesh shape as asked."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import NamedSharding, P
+
+    tree = {"w": torch.arange(64.0).reshape(8, 8), "wq": leaf}
+    want = {k: np.asarray(v) for k, v in tree.items()}
+    rec = {}
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, async_save=False)
+        mgr.save(5, tree)
+        for shape in [(2, 4), (4, 2)]:
+            mesh = grid_mesh(devices, shape)
+            sh = {k: NamedSharding(mesh, P("data", "model")) for k in tree}
+            got, step, _ = mgr.restore_latest(tree, shardings=sh)
+            rec[str(shape)] = ok = (
+                step == 5 and all(np.array_equal(np.asarray(got[k]), want[k]) for k in tree)
+                and all(got[k].sharding.mesh.devices.shape == shape for k in tree)
+                and got["wq"].blocks[1, 1].device == mesh.devices[1, 1])
+            check(ok, f"elastic restore onto {shape} differs")
+    return rec
+
+
+def check_sharded(rec, what):
+    check(rec["param_excess_over_rtol"] <= SHARD_PARAM_TOL,
+          f"{what}: parameters beyond {SHARD_PARAM_TOL} of the single-card step's")
+    check(rec["loss_abs_diff"] <= SHARD_LOSS_TOL,
+          f"{what}: loss {rec['loss_abs_diff']} from the single-card step's")
+    check(rec["gnorm_rel_diff"] <= SHARD_GNORM_REL,
+          f"{what}: gnorm {rec['gnorm_rel_diff']} from the single-card step's")
+    check(all(finite(x) for m in rec["sharded"]["metrics"] for x in m),
+          f"{what}: non-finite metrics")
+
+
+def phase_lm_sharded():
+    """qwen2-1.5b at full width cut to ``SHARD_LAYERS`` layers (f32, TF32
+    off): the sharded step on a (2, 4) mesh of eight repeats of the card
+    against the step on the card; the attention kernel launched once per
+    replica for each launch of the single-card step; ``compress_grads`` on
+    the card bit-equal to the CPU; elastic restore (2, 4) → (4, 2).
+    Returns the kernel's launches in the sharded run."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import NamedSharding, P, device_put
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(LM_ARCH).full_config(), n_layers=SHARD_LAYERS,
+                              dtype=torch.float32)
+    mesh = grid_mesh(["cuda"] * 8, SHARD_MESH)
+    rec = train_two_ways(cfg, mesh, SHARD_ACCUM, SHARD_MICRO, SHARD_SEQ, SHARD_STEPS)
+    n_rep = SHARD_MESH[0]
+    per_step = cfg.n_layers * SHARD_ACCUM * (2 if cfg.remat else 1)
+    rec["expected_launches"] = {"single": SHARD_STEPS * per_step,
+                                "sharded": n_rep * SHARD_STEPS * per_step}
+    rec["compress_grads"] = [compress_grads_hold(["cuda"] * 8, (8,), ("data",), "data"),
+                             compress_grads_hold(["cuda"] * 8, (2, 4), ("data", "model"), "data")]
+    wq = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (cfg.d_model, cfg.d_model), dtype=np.float32))
+    leaf = device_put(wq, NamedSharding(mesh, P("data", "model")))
+    rec["elastic_restore"] = elastic_restore_hold(leaf, ["cuda"] * 8)
+    emit({"phase": "lm_sharded", **rec})
+    check_sharded(rec, "lm_sharded")
+    check(rec["single"]["launches"] == rec["expected_launches"]["single"],
+          f"lm_sharded: {rec['single']['launches']} launches in the single-card steps")
+    check(rec["sharded"]["launches"] == n_rep * rec["single"]["launches"],
+          f"lm_sharded: {rec['sharded']['launches']} launches, expected {n_rep} × "
+          f"{rec['single']['launches']} (one per replica per launch of the single-card step)")
+    check(all(c["bit_equal"] for c in rec["compress_grads"]),
+          f"lm_sharded: compress_grads on the card differs from the CPU {rec['compress_grads']}")
+    torch.cuda.empty_cache()
+    return rec["sharded"]["launches"], rec
+
+
+def phase_lm_sharded_cards():
+    """``--cards``: the full 28-layer qwen2-1.5b (f32, TF32 off) sharded
+    over a (2, 2) mesh of four cards, 2 steps, against the step on the lead
+    card, each card's peak; ``compress_grads`` over the four cards
+    bit-equal to the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    check(torch.cuda.device_count() >= 4, "--cards: the sharded step needs 4 cards")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(LM_ARCH).full_config(), dtype=torch.float32)
+    cards = [f"cuda:{i}" for i in range(4)]
+    mesh = grid_mesh(cards, CARDS_MESH)
+    rec = train_two_ways(cfg, mesh, SHARD_ACCUM, SHARD_MICRO, SHARD_SEQ, SHARD_STEPS)
+    rec["compress_grads"] = compress_grads_hold(cards, (4,), ("data",), "data")
+    emit({"phase": "lm_sharded_cards", **rec})
+    check_sharded(rec, "lm_sharded_cards")
+    check(rec["compress_grads"]["bit_equal"], "--cards: compress_grads differs from the CPU")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 
 def main_cards() -> int:
     """``python3 chip_smoke.py --cards``: phase 8i's scheme over every
-    visible card (a multi-card machine), against the pallas vectors."""
+    visible card (a multi-card machine), against the pallas vectors; then
+    the full-depth sharded train step over four cards."""
     from repro_torch.core import TriangleCounter, prepare_oriented
     from repro_torch.graphs import kronecker_rmat
 
@@ -3335,6 +3721,9 @@ def main_cards() -> int:
     tc = TriangleCounter(method="pallas", max_wedge_chunk=BUDGETS_21[0])
     vectors = tc.per_node(csr), tc.edge_support(csr)
     phase_distributed_cards(edges, csr, *vectors)
+    del edges, csr, vectors
+    torch.cuda.empty_cache()
+    phase_lm_sharded_cards()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
@@ -3407,6 +3796,8 @@ def main() -> int:
     phase_train_cli()
     moe_layer_hold()
     moe_train_launches, moe_serve_launches, _ = phase_moe_full()
+    kv_int8_launches, _ = phase_kv_int8()
+    sharded_launches, _ = phase_lm_sharded()
 
     kernels = []
     for k in CSR_KERNELS:
@@ -3449,12 +3840,16 @@ def main() -> int:
         "bound_by": fa_time["bound_by"], "library_ms": fa_time["library_ms"],
         "checked_cases": fa_cases, "shape": fa_time["shape"], "on_main_path": True,
         # phase 13's 6 qwen2-1.5b train steps (112 a step); phase 14's granite
-        # MoE: 2 train steps and one serve
+        # MoE: 2 train steps and one serve; phase 15's two timed serves (bf16
+        # and int8 cache); phase 16's sharded steps (2 replicas)
         "train_launches": train_launches, "moe_train_launches": moe_train_launches,
-        "moe_serve_launches": moe_serve_launches,
+        "moe_serve_launches": moe_serve_launches, "kv_int8_launches": kv_int8_launches,
+        "sharded_train_launches": sharded_launches,
     })
     check(fa_launches > 0, "flash_attention was not launched on the serving path")
     check(train_launches > 0, "flash_attention was not launched on the training path")
+    check(kv_int8_launches > 0, "flash_attention was not launched on the int8-cache serve")
+    check(sharded_launches > 0, "flash_attention was not launched by the sharded step")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "nvidia_smi": smi_line})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -33,10 +33,14 @@ depends on it):
 * ``restore_latest`` walks checkpoints newest-first, validating the
   COMMIT marker and the full manifest, and falls back to the previous
   one on any torn/truncated/corrupted/mis-versioned candidate.
-* Torch tensors are copied to host numpy at save; a tensor leaf of the
-  restore target comes back as a tensor of its dtype on its device.
-  ``shardings=`` (restoring onto the LM train step's sharded mesh) is
-  held for ROADMAP A7b and raises.
+* Torch tensors are copied to host numpy at save, and a
+  :class:`~repro_torch.distributed.ShardedTensor` is gathered (arrays are
+  stored unsharded); a tensor leaf of the restore target comes back as a
+  tensor of its dtype on its device (a sharded one as a host tensor).
+  ``restore`` takes an optional
+  ``shardings`` tree of :class:`~repro_torch.distributed.NamedSharding`
+  and places each leaf by it (``device_put``) — restoring onto a
+  *different* mesh shape (elastic restart) is therefore free.
 * ``CheckpointManager(async_save=True)`` snapshots to host memory
   synchronously and writes in a background thread (one in-flight save).
   ``save``/``wait`` are thread-safe, background errors surface on the
@@ -58,6 +62,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import ShardedTensor, device_put
+
 __all__ = [
     "FORMAT_VERSION",
     "save_checkpoint",
@@ -70,13 +76,6 @@ __all__ = [
 # manifests declare their layout, so a future change invalidates old
 # checkpoints loudly instead of misreading them
 FORMAT_VERSION = 2
-
-_SHARDINGS_NOT_PORTED = (
-    "restoring onto a device mesh (shardings=) is not yet ported to "
-    "repro_torch (ROADMAP A7b: the LM train step's sharding); use the JAX "
-    "package repro for it"
-)
-
 
 def _map_leaves(tree, fn, prefix=()):
     """``tree`` with each leaf replaced by ``fn(path, leaf)``."""
@@ -106,6 +105,8 @@ def _key(path) -> str:
 
 
 def _host_array(leaf) -> np.ndarray:
+    if isinstance(leaf, ShardedTensor):
+        return leaf.numpy()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
@@ -196,15 +197,16 @@ def _validate(path: str) -> dict | None:
 
 def _like(arr: np.ndarray, leaf):
     """A restored array in the type, dtype (and device) of the target leaf."""
+    if isinstance(leaf, ShardedTensor):  # on the host until shardings= places it
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(leaf.dtype)
     if isinstance(leaf, torch.Tensor):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(device=leaf.device, dtype=leaf.dtype)
     return arr.astype(np.asarray(leaf).dtype)
 
 
 def restore_checkpoint(path: str, target: Any, shardings: Any | None = None):
-    """Restore into the structure of ``target`` (shapes come from the file)."""
-    if shardings is not None:
-        raise NotImplementedError(_SHARDINGS_NOT_PORTED)
+    """Restore into the structure of ``target`` (shapes come from the file);
+    with ``shardings``, each leaf placed by its ``NamedSharding``."""
     manifest = _validate(path)
     if manifest is None:
         raise ValueError(f"checkpoint at {path} is torn or corrupted")
@@ -216,16 +218,16 @@ def restore_checkpoint(path: str, target: Any, shardings: Any | None = None):
                 raise KeyError(f"leaf {key} missing from checkpoint")
             restored[key] = z[key]
     tree = _map_leaves(target, lambda p, leaf: _like(restored[_key(p)], leaf))
+    if shardings is not None:
+        tree = device_put(tree, shardings)
     return tree, manifest["step"], manifest["extra"]
 
 
 def restore_latest(directory: str, target: Any, shardings: Any | None = None):
     """Newest valid checkpoint, falling back past torn/corrupted ones."""
-    if shardings is not None:
-        raise NotImplementedError(_SHARDINGS_NOT_PORTED)
     for step, path in reversed(list_checkpoints(directory)):
         if _validate(path) is not None:
-            return restore_checkpoint(path, target)
+            return restore_checkpoint(path, target, shardings)
     return None
 
 

@@ -17,13 +17,19 @@ ARCH_MODULES = [
 
 REGISTRY = {m.ARCH_ID: m for m in ARCH_MODULES}
 
-# the JAX package's other arch ids, whose configs wait for ROADMAP queue A
+# the JAX package's other arch ids, whose configs wait for ROADMAP queue A:
+# the GNN and recsys archs for A8, the triangle-counting dry-run cells for A9
 NOT_PORTED_ARCHS = ("schnet", "gcn-cora", "graphsage-reddit", "egnn", "din", "triangles")
 
 
 def get_arch(arch_id: str):
     if arch_id in REGISTRY:
         return REGISTRY[arch_id]
+    if arch_id == "triangles":
+        raise NotImplementedError(
+            "arch 'triangles' (the dry-run cells) is not yet ported (ROADMAP A9: the "
+            "analysis tools); use the JAX package repro for it"
+        )
     if arch_id in NOT_PORTED_ARCHS:
         raise NotImplementedError(
             f"arch {arch_id!r} is not yet ported (ROADMAP A8: GNN and recsys); "

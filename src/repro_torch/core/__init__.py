@@ -67,7 +67,10 @@ from .incremental import IncrementalTriangleCounter, UpdateStats
 from .count import (
     WedgePlan,
     make_wedge_plan,
+    count_wedges_found,
+    count_triangles_csr,
     count_triangles,
+    per_node_triangles,
     bucketize_edges,
     gather_panels,
     panel_intersect_count,
@@ -128,7 +131,10 @@ __all__ = [
     "degrees",
     "WedgePlan",
     "make_wedge_plan",
+    "count_wedges_found",
+    "count_triangles_csr",
     "count_triangles",
+    "per_node_triangles",
     "bucketize_edges",
     "gather_panels",
     "panel_intersect_count",

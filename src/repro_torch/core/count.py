@@ -43,6 +43,9 @@ __all__ = [
     "expand_and_close_wedges",
     "expand_and_close_wedges_indexed",
     "segmented_int32_sum",
+    "count_wedges_found",
+    "count_triangles_csr",
+    "per_node_triangles",
     "count_triangles",
     "bucketize_edges",
     "gather_panels",
@@ -187,6 +190,44 @@ def segmented_int32_sum(hits: torch.Tensor, seg: int = 1 << 20) -> torch.Tensor:
         hits = torch.cat([hits, hits.new_zeros((pad,))])
     # trilint: ok[overflow] — a chunk partial: each segment sum is at most seg
     return hits.reshape(-1, seg).sum(dim=1, dtype=torch.int32)
+
+
+def count_wedges_found(csr: OrientedCSR, plan: WedgePlan):
+    """Return (found mask over the wedge buffer, wedge endpoints (u, v, w)).
+
+    The wedge buffer enumerates, for each directed edge ``(u, v)``, every
+    candidate ``w ∈ N⁺(u)``; ``found[i]`` says wedge ``i`` closes into a
+    triangle.  Padding slots are masked off.
+    """
+    found, u, v, w = expand_and_close_wedges(
+        csr.src, csr.col, csr.row_offsets, csr.col, csr.out_degree,
+        plan.total_wedges, plan.n_search_steps,
+    )
+    return found, (u, v, w)
+
+
+def count_triangles_csr(csr: OrientedCSR, plan: WedgePlan | None = None) -> int:
+    """Total triangle count from an oriented CSR, unchunked: per-2²⁰-slot
+    int32 partials on the device, folded in uint64 on the host."""
+    if plan is None:
+        plan = make_wedge_plan(csr)
+    found, _ = count_wedges_found(csr, plan)
+    partials = segmented_int32_sum(found)
+    return int(partials.cpu().numpy().astype(np.uint64).sum())
+
+
+def per_node_triangles(csr: OrientedCSR, plan: WedgePlan | None = None) -> torch.Tensor:
+    """Number of triangles each vertex participates in (int32, on the CSR's device)."""
+    if plan is None:
+        plan = make_wedge_plan(csr)
+    found, (u, v, w) = count_wedges_found(csr, plan)
+    inc = found.to(torch.int64)
+    out = torch.zeros((csr.n_nodes,), dtype=torch.int64, device=inc.device)
+    for idx in (u, v, w):
+        out.index_add_(0, idx, inc)
+    # a vertex is in at most as many triangles as there are wedge slots
+    ensure_fits_int32(plan.total_wedges, "wedge slots (per-node int32 counts)")
+    return out.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,22 @@
-"""Distributed runtime of the port: the device mesh, wire compression,
-stripe skew, and (held for ROADMAP A7b) the LM sharding rules.
+"""Distributed runtime of the port: the device mesh, the LM sharding rules,
+wire compression and stripe skew.
 
-The reference's names are all exported; those of the LM train step
-(``ShardingRules``, ``make_param_shardings``, ``spec_for``, ``LM_RULES``,
-``compressed_psum``, ``make_error_feedback_state``, ``compress_grads``)
-raise when used.  :class:`Mesh` is the port's counterpart of
-``jax.sharding.Mesh``.
+The reference's names are all exported.  :class:`Mesh`, :class:`NamedSharding`,
+:class:`PartitionSpec` (``P``) and :func:`device_put` are the port's
+counterparts of ``jax.sharding`` and ``jax.device_put``; a
+:class:`ShardedTensor` is a tensor held as blocks on a mesh.
 """
-from .sharding import ShardingRules, make_param_shardings, LM_RULES, spec_for
+from .sharding import (
+    ShardingRules,
+    make_param_shardings,
+    LM_RULES,
+    spec_for,
+    PartitionSpec,
+    P,
+    NamedSharding,
+    ShardedTensor,
+    device_put,
+)
 from .compression import (
     INT32_MAX,
     compressed_psum,
@@ -32,6 +41,11 @@ __all__ = [
     "make_param_shardings",
     "spec_for",
     "LM_RULES",
+    "PartitionSpec",
+    "P",
+    "NamedSharding",
+    "ShardedTensor",
+    "device_put",
     "compressed_psum",
     "make_error_feedback_state",
     "compress_grads",

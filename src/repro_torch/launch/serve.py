@@ -22,6 +22,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_arch
 from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import quantize_kv_token
 
 
 def _sync(dev: torch.device) -> None:
@@ -32,6 +33,11 @@ def _sync(dev: torch.device) -> None:
 def serve(cfg: tfm.TransformerConfig, params: tfm.TransformerParams, prompts: torch.Tensor,
           gen: int):
     """Prefill ``prompts`` (B, S) and decode greedily until ``gen`` new tokens.
+
+    With ``cfg.kv_quant`` the prefill's K/V are quantized per token
+    (:func:`~repro_torch.models.attention.quantize_kv_token`) into the int8
+    cache of :func:`~repro_torch.models.transformer.init_kv_cache_int8`, and
+    decode reads it through the int8 dots.
 
     Returns ``(tokens (B, gen) int32, timings)``; timings holds
     ``prefill_s`` (prefill, cache fill and the first token), ``decode_s``
@@ -46,11 +52,15 @@ def serve(cfg: tfm.TransformerConfig, params: tfm.TransformerParams, prompts: to
     _sync(dev)
     t0 = time.perf_counter()
     last_logits, kv = tfm.prefill(params, prompts, cfg)
-    k0, v0 = tfm.init_kv_cache(cfg, batch, max_len, dtype=cfg.dtype, device=dev)
-    k0[:, :, :, :prompt_len] = kv[0]
-    v0[:, :, :, :prompt_len] = kv[1]
-    del kv
-    cache = (k0, v0)
+    if cfg.kv_quant:  # the prefill's K/V quantized per token into the int8 cache
+        cache = tfm.init_kv_cache_int8(cfg, batch, max_len, device=dev)
+        fill = quantize_kv_token(kv[0], kv[1])
+    else:
+        cache = tfm.init_kv_cache(cfg, batch, max_len, dtype=cfg.dtype, device=dev)
+        fill = kv
+    for dst, src in zip(cache, fill):
+        dst[:, :, :, :prompt_len] = src
+    del kv, fill
     tok = torch.argmax(last_logits, -1).to(torch.int32)
     _sync(dev)
     t_prefill = time.perf_counter() - t0

@@ -51,6 +51,11 @@ from repro_torch.launch.count import (
 from repro_torch.serve import SnapshotStore, drive_stream
 
 
+def run_service(stream, **kwargs):
+    """Back-compat alias for :func:`repro_torch.serve.session.drive_stream`."""
+    return drive_stream(stream, **kwargs)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     add_source_arguments(ap)

@@ -31,9 +31,9 @@ same parameter names, layouts and casts:
   copy is rebuilt when a parameter changes (an optimizer step).
 * **KV cache** — :func:`decode_step` writes the new token's K/V into the
   cache in place, where JAX donates the cache buffers and returns new ones.
-
-Not yet ported (ROADMAP A7b): the int8 KV cache (``cfg.kv_quant``), which
-raises.
+  With ``cfg.kv_quant`` the cache is the int8 4-tuple of
+  :func:`init_kv_cache_int8` and decode attention is
+  :func:`~repro_torch.models.attention.decode_attention_int8`.
 """
 from __future__ import annotations
 
@@ -49,7 +49,13 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from repro_torch._device import resolve_device
 from repro_torch.kernels.flash_attention import ops as attn_ops
 
-from .attention import apply_rope, decode_attention, rope
+from .attention import (
+    apply_rope,
+    decode_attention,
+    decode_attention_int8,
+    quantize_kv_token,
+    rope,
+)
 
 __all__ = [
     "TransformerConfig",
@@ -58,6 +64,7 @@ __all__ = [
     "params_from_numpy",
     "params_to_numpy",
     "param_tree",
+    "params_from_tree",
     "load_numpy_",
     "tensors_from_numpy",
     "forward",
@@ -67,9 +74,6 @@ __all__ = [
     "init_kv_cache",
     "init_kv_cache_int8",
 ]
-
-_NOT_PORTED = "is not yet ported (ROADMAP A7b: the int8 KV cache); use the JAX package repro for it"
-
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
@@ -87,7 +91,7 @@ class TransformerConfig:
     norm_eps: float = 1e-5
     vocab_pad: int = 512     # vocab-parallel tables round up to this
     onehot_ce: bool = False  # CE via one-hot contraction
-    kv_quant: bool = False   # int8 KV cache (not yet ported)
+    kv_quant: bool = False   # int8 KV cache + int8×int8 decode dots
     dtype: Any = torch.bfloat16        # activation/compute dtype
     param_dtype: Any = torch.float32   # master parameter dtype
     remat: bool = True                 # training only; no effect on serving
@@ -134,11 +138,6 @@ class TransformerConfig:
         mlp = self.top_k * (3 * d * ff) + d * self.n_experts
         per_layer = attn + mlp + 2 * d
         return self.n_layers * per_layer + 2 * self.vocab_size * d + d
-
-
-def _check_ported(cfg: TransformerConfig) -> None:
-    if cfg.kv_quant:
-        raise NotImplementedError(f"{cfg.name}: the int8 KV cache (kv_quant=True) " + _NOT_PORTED)
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +229,26 @@ def param_tree(params: TransformerParams) -> dict:
     return tree
 
 
+def params_from_tree(tree: dict, cfg: TransformerConfig) -> TransformerParams:
+    """Port parameters whose ``nn.Parameter``\\ s are the tensors of a
+    :func:`param_tree`-shaped tree, taken as they are (no copy): a sharded
+    train step's weights gathered onto one device."""
+    params = TransformerParams(cfg, torch.device("meta"))
+
+    def put(module: nn.Module, name: str, t: torch.Tensor, what: str):
+        if tuple(t.shape) != tuple(getattr(module, name).shape):
+            raise ValueError(f"{what}: shape {tuple(t.shape)} != "
+                             f"{tuple(getattr(module, name).shape)}")
+        setattr(module, name, nn.Parameter(t))
+
+    for name in _top_shapes(cfg):
+        put(params, name, tree[name], name)
+    for i, (layer, leaves) in enumerate(zip(params.layers, tree["layers"], strict=True)):
+        for name in _layer_shapes(cfg):
+            put(layer, name, leaves[name], f"layers.{name}[{i}]")
+    return params
+
+
 def _dense_init(shape, gen, device, scale=None) -> torch.Tensor:
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else fan_in ** -0.5
@@ -244,7 +263,6 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None) -> Transform
     numbers: ``torch`` and ``jax.random`` differ.  Tests carry JAX
     parameters across with :func:`params_from_numpy` instead.
     """
-    _check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -270,7 +288,6 @@ def params_from_numpy(tree: dict, cfg: TransformerConfig, device=None) -> Transf
     ``tree["layers"]`` holds each layer key stacked on a leading axis of
     length ``n_layers``, as the JAX package's ``init_params`` makes it.
     """
-    _check_ported(cfg)
     dev = resolve_device(device)
     params = TransformerParams(cfg, dev)
     missing = set(_layer_shapes(cfg)) ^ set(tree["layers"])
@@ -385,7 +402,10 @@ def _moe(h: torch.Tensor, p: dict, cfg: TransformerConfig) -> torch.Tensor:
     e, k = cfg.n_experts, cfg.top_k
     logits = (h @ p["router"].to(h.dtype)).to(torch.float32)          # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    top_w, top_e = torch.topk(probs, k, dim=-1)                        # (T, k)
+    # a stable descending sort keeps the lower expert first among equal
+    # probabilities, as jax.lax.top_k does (torch.topk leaves ties unordered)
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[:, :k], top_e[:, :k]                          # (T, k)
     top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)            # renormalise
     flat_e = top_e.reshape(-1)                                         # (T·k,)
     order = torch.argsort(flat_e, stable=True)
@@ -485,7 +505,6 @@ def _train_logits(params: TransformerParams, tokens, cfg: TransformerConfig) -> 
 def forward(params: TransformerParams, tokens: torch.Tensor, cfg: TransformerConfig,
             return_kv: bool = False):
     """tokens: (B, S) int → logits (B, S, V) [+ stacked KV caches (L, B, KV, S, hd)]."""
-    _check_ported(cfg)
     w = params.serving_weights(cfg.dtype)
     dev = w["embed"].device
     tokens = tokens.to(dev)
@@ -513,7 +532,6 @@ def loss_fn(params: TransformerParams, batch: dict, cfg: TransformerConfig) -> t
     the max-shifted logits (the max detached, as JAX's ``stop_gradient``);
     otherwise ``log_softmax`` and a gather.  Logits are f32.
     """
-    _check_ported(cfg)
     dev = params.embed.device
     logits = _train_logits(params, batch["tokens"], cfg).to(torch.float32)
     labels = torch.as_tensor(batch["labels"]).to(dev).long()
@@ -541,7 +559,6 @@ def prefill(params: TransformerParams, tokens: torch.Tensor, cfg: TransformerCon
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None, device=None):
-    _check_ported(cfg)
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     dtype = dtype or cfg.dtype
@@ -549,9 +566,15 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None, 
             torch.zeros(shape, dtype=dtype, device=dev))
 
 
-def init_kv_cache_int8(cfg: TransformerConfig, batch: int, max_len: int):
-    """The int8 KV cache of the JAX package; raises until ported."""
-    raise NotImplementedError("init_kv_cache_int8 " + _NOT_PORTED)
+def init_kv_cache_int8(cfg: TransformerConfig, batch: int, max_len: int, device=None):
+    """(k int8, k_scale f32, v int8, v_scale f32): payloads (L, B, KV, S, hd),
+    scales (L, B, KV, S) — about 2.2× smaller than a bf16 cache."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    return (torch.zeros(shape, dtype=torch.int8, device=dev),
+            torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+            torch.zeros(shape, dtype=torch.int8, device=dev),
+            torch.zeros(shape[:-1], dtype=torch.float32, device=dev))
 
 
 @torch.no_grad()
@@ -559,17 +582,17 @@ def decode_step(params: TransformerParams, token: torch.Tensor, pos: int, kv_cac
                 cfg: TransformerConfig):
     """One greedy decode step at position ``pos`` (= cache length).
 
-    ``kv_cache`` is ``(k, v)`` of shape (L, B, KV, S_max, hd); the new
-    token's K/V are written into it in place.  Returns (logits (B, V) f32,
-    the same cache).
+    ``kv_cache`` is ``(k, v)`` of shape (L, B, KV, S_max, hd), or with
+    ``cfg.kv_quant`` the 4-tuple ``(k_i8, k_scale, v_i8, v_scale)`` of
+    :func:`init_kv_cache_int8`; the new token's K/V are written into it in
+    place.  Returns (logits (B, V) f32, the same cache).
     """
-    _check_ported(cfg)
     w = params.serving_weights(cfg.dtype)
     dev = w["embed"].device
     pos = int(pos)
-    k_cache, v_cache = kv_cache
-    if not 0 <= pos < k_cache.shape[3]:
-        raise IndexError(f"position {pos} is outside the cache of length {k_cache.shape[3]}")
+    s_max = kv_cache[0].shape[3]
+    if not 0 <= pos < s_max:
+        raise IndexError(f"position {pos} is outside the cache of length {s_max}")
     token = token.to(dev)
     b = token.shape[0]
     nh, hd = cfg.n_heads, cfg.head_dim
@@ -580,13 +603,24 @@ def decode_step(params: TransformerParams, token: torch.Tensor, pos: int, kv_cac
         q, k, v = _qkv(h, layer_p, cfg)
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
-        k_cache[i, :, :, pos:pos + 1] = k.to(k_cache.dtype)
-        v_cache[i, :, :, pos:pos + 1] = v.to(v_cache.dtype)
-        o = decode_attention(q, k_cache[i], v_cache[i], cache_len=pos + 1)
+        if cfg.kv_quant:
+            k_cache, k_s, v_cache, v_s = kv_cache
+            kq, ks_tok, vq, vs_tok = quantize_kv_token(k, v)
+            k_cache[i, :, :, pos:pos + 1] = kq
+            v_cache[i, :, :, pos:pos + 1] = vq
+            k_s[i, :, :, pos:pos + 1] = ks_tok
+            v_s[i, :, :, pos:pos + 1] = vs_tok
+            o = decode_attention_int8(q, k_cache[i], k_s[i], v_cache[i], v_s[i],
+                                      cache_len=pos + 1)
+        else:
+            k_cache, v_cache = kv_cache
+            k_cache[i, :, :, pos:pos + 1] = k.to(k_cache.dtype)
+            v_cache[i, :, :, pos:pos + 1] = v.to(v_cache.dtype)
+            o = decode_attention(q, k_cache[i], v_cache[i], cache_len=pos + 1)
         o = o.transpose(1, 2).reshape(b, 1, nh * hd)
         x = x + o @ layer_p["wo"]
         hmid = rms_norm(x, layer_p["rms_mlp"], cfg.norm_eps)
         x = x + _mlp(hmid, layer_p, cfg)
     x = rms_norm(x, w["final_norm"], cfg.norm_eps)
     logits = _mask_pad_vocab((x @ w["lm_head"])[:, 0], cfg)
-    return logits.to(torch.float32), (k_cache, v_cache)
+    return logits.to(torch.float32), kv_cache

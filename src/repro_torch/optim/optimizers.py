@@ -87,6 +87,19 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: _clipped(g, scale), grads), gnorm
 
 
+def _per_device(**scalars):
+    """``on(device)``: the 0-d tensors ``scalars`` (or None) on ``device``,
+    each copied there once."""
+    cache: dict = {}
+
+    def on(dev):
+        if dev not in cache:
+            cache[dev] = {k: None if x is None else x.to(dev) for k, x in scalars.items()}
+        return cache[dev]
+
+    return on
+
+
 def _into_grad(g: torch.Tensor, lr_t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``-lr_t · x``, written into ``g`` when it is f32 (see the module note)."""
     return torch.mul(-lr_t, x, out=g if g.dtype == torch.float32 else None)
@@ -118,25 +131,29 @@ def adamw(
                         nu=tree_map(_zeros_f32, params))
 
     @torch.no_grad()
-    def update(grads, state: OptState, params):
-        gnorm = scale = None
+    def update(grads, state: OptState, params, gnorm=None):
+        """``gnorm``: the gradients' global norm when the caller has it — a
+        sharded tree holds a replicated block once per device, and its norm
+        counts each element once.  The leaves may lie on several devices."""
+        scale = None
         if max_grad_norm is not None:
-            gnorm = _global_norm(grads)
+            if gnorm is None:
+                gnorm = _global_norm(grads)
             scale = _clip_scale(gnorm, max_grad_norm)
         step = state.step + 1
         t = step.to(torch.float32)
-        bc1 = 1.0 - b1 ** t
-        bc2 = 1.0 - b2 ** t
-        lr_t = lr_fn(step).to(t.device)
+        on = _per_device(scale=scale, bc1=1.0 - b1 ** t, bc2=1.0 - b2 ** t,
+                         lr_t=lr_fn(step).to(t.device))
 
         def upd(g, m, v, p):
-            gf = (g if scale is None else _clipped(g, scale)).to(torch.float32)
+            c = on(g.device)
+            gf = (g if c["scale"] is None else _clipped(g, c["scale"])).to(torch.float32)
             m.mul_(b1).add_((1 - b1) * gf)
             v.mul_(b2).add_((1 - b2) * gf * gf)
-            mhat = m / bc1
-            vhat = v / bc2
+            mhat = m / c["bc1"]
+            vhat = v / c["bc2"]
             del gf
-            return _into_grad(g, lr_t, mhat / (torch.sqrt(vhat) + eps)
+            return _into_grad(g, c["lr_t"], mhat / (torch.sqrt(vhat) + eps)
                               + weight_decay * p.to(torch.float32))
 
         updates = tree_map(upd, grads, state.mu, state.nu, params)

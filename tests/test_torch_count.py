@@ -5,6 +5,8 @@ The same oriented CSR (the reference's, handed to the port through
 both packages; hit masks, every per-slot index (padding slots included),
 segment partials and panel gathers must be equal (tolerance 0).
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -109,3 +111,36 @@ def test_bucketize_rejects_narrow_ladder(small_graphs):
     _, port = both_csrs(small_graphs["kron"])
     with pytest.raises(ValueError, match="exceeds largest bucket"):
         port_count.bucketize_edges(port, widths=(2,))
+
+
+# ---------------------------------------------------------------------------
+# the unchunked public functions (count_triangles_csr, per_node_triangles)
+# ---------------------------------------------------------------------------
+
+KARATE = os.path.join(os.path.dirname(__file__), "data", "karate.txt")
+
+
+@pytest.mark.parametrize("name", ["er", "kron", "ws", "triangle", "karate"])
+def test_unchunked_count_and_per_node_match_reference(small_graphs, name):
+    from repro.graphs.io import ingest
+    from repro_torch.core import TriangleCounter, count_triangles_csr, count_wedges_found
+    from repro_torch.core import per_node_triangles
+
+    edges = ingest(KARATE)[0].edge_array() if name == "karate" else small_graphs[name]
+    ref, port = both_csrs(edges)
+    plan = ref_count.make_wedge_plan(ref)
+    found, uvw = count_wedges_found(port, port_count.make_wedge_plan(port))
+    want_found, want_uvw = ref_count.count_wedges_found(ref, plan)
+    np.testing.assert_array_equal(found.numpy(), np.asarray(want_found))
+    for g, w in zip(uvw, want_uvw):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    count = count_triangles_csr(port)
+    assert count == ref_count.count_triangles_csr(ref)
+    assert count == TriangleCounter(method="wedge_bsearch", device="cpu").count(edges)
+    if name == "karate":
+        assert count == 45
+    per_node = per_node_triangles(port)
+    assert per_node.dtype == torch.int32
+    np.testing.assert_array_equal(per_node.numpy(), np.asarray(ref_count.per_node_triangles(ref)))
+    np.testing.assert_array_equal(
+        per_node.numpy(), TriangleCounter(method="wedge_bsearch", device="cpu").per_node(edges))

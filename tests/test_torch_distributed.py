@@ -198,16 +198,19 @@ def test_exports_match_reference():
     import repro.distributed as ref_distributed
 
     assert set(ref_distributed.__all__) <= set(port_distributed.__all__)
-    held = {"compressed_psum": (None, "s"), "compress_grads": (None, None, "s"),
-            "make_error_feedback_state": (None,)}
-    for name, args in held.items():
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            getattr(compression, name)(*args)
-    for name in ("ShardingRules", "make_param_shardings", "spec_for"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            getattr(port_distributed, name)()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        port_distributed.LM_RULES.spec("layers/wq", 3)
+    # the LM sharding names are ported (tests/test_torch_sharding.py holds
+    # them to the reference); the rules render the reference's specs
+    for path, ndim in (("layers/wq", 3), ("layers/wo", 3), ("embed", 2), ("lm_head", 2),
+                       ("layers/router", 3), ("final_norm", 1), (".mu/embed", 2)):
+        assert tuple(port_distributed.LM_RULES.spec(path, ndim)) == \
+            tuple(ref_distributed.LM_RULES.spec(path, ndim))
+    mesh = Mesh(["cpu"] * 2, ("data",))
+    parts = [torch.full((3,), 0.5), torch.full((3,), 1.5)]
+    np.testing.assert_allclose(np.stack([x.numpy() for x in compression.compressed_psum(
+        parts, mesh, "data")]), 2.0, rtol=1e-2)
+    ef = compression.make_error_feedback_state([{"w": p} for p in parts])
+    sync, _ = compression.compress_grads([{"w": p} for p in parts], ef, mesh, "data")
+    np.testing.assert_allclose(sync[1]["w"].numpy(), 1.0, rtol=1e-2)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         launch_mesh.make_production_mesh()
     import repro_torch.core as port_core

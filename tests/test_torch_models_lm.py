@@ -201,15 +201,23 @@ def test_serve_cli_without_a_card_stops(monkeypatch, capsys):
 
 
 def test_kv_quant_loss_and_other_archs_are_not_ported():
+    """kv_quant is ported: its int8 cache has the reference's shapes and
+    dtypes, and a decode step writes the new token into it; the GNN and
+    recsys archs still raise."""
     cfg = dataclasses.replace(REGISTRY["llama3.2-3b"].smoke_config(), kv_quant=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfm.init_kv_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfm.decode_step(None, torch.zeros((1,), dtype=torch.int32), 0, None, cfg)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfm.init_kv_cache_int8(cfg, 1, 8)
+    jcfg = dataclasses.replace(JAX_REGISTRY["llama3.2-3b"].smoke_config(), kv_quant=True)
+    cache = tfm.init_kv_cache_int8(cfg, 2, 8, device="cpu")
+    for got, want in zip(cache, jtfm.init_kv_cache_int8(jcfg, 2, 8)):
+        assert tuple(got.shape) == want.shape and str(got.dtype)[6:] == str(want.dtype)
+    params = tfm.init_params(cfg, 0, device="cpu")
+    logits, out = tfm.decode_step(params, torch.zeros((2,), dtype=torch.int32), 0, cache, cfg)
+    assert out is cache and bool(torch.isfinite(logits).all())
+    assert bool((cache[0][:, :, :, 0] != 0).any()) and bool((cache[1][:, :, :, 0] > 0).all())
+    assert not bool(cache[0][:, :, :, 1:].any())
     with pytest.raises(NotImplementedError, match="not yet ported"):
         get_arch("gcn-cora")
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        get_arch("triangles")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 

@@ -296,11 +296,22 @@ def test_tensor_leaves_round_trip(tmp_path):
 
 
 def test_shardings_are_not_ported(tmp_path):
-    path = save_checkpoint(str(tmp_path), 1, _tree())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        restore_checkpoint(path, _template(), shardings={"w": None})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        restore_latest(str(tmp_path), _template(), shardings={"w": None})
+    """``shardings=`` is ported: each restored leaf is placed by its
+    NamedSharding, from a checkpoint of either package."""
+    from repro_torch.distributed import Mesh, NamedSharding, P
+
+    mesh = Mesh(np.array(["cpu"] * 8, dtype=object).reshape(2, 4), ("data", "model"))
+    sh = NamedSharding(mesh, P("data", "model"))
+    tree = {"w": np.arange(64, dtype=np.float32).reshape(8, 8)}
+    path = save_checkpoint(str(tmp_path / "port"), 1, tree)
+    ref_save_checkpoint(str(tmp_path / "ref"), 1, tree)
+    got, step, _ = restore_checkpoint(path, {"w": np.zeros(0, np.float32)}, shardings={"w": sh})
+    got_ref, step_ref, _ = restore_latest(str(tmp_path / "ref"), {"w": np.zeros(0, np.float32)},
+                                          shardings={"w": sh})
+    assert step == step_ref == 1
+    for g in (got["w"], got_ref["w"]):
+        assert g.sharding is sh and g.blocks[1, 3].shape == (4, 2)
+        np.testing.assert_array_equal(np.asarray(g), tree["w"])
 
 
 # ---------------------------------------------------------------------------
@@ -392,6 +403,20 @@ def test_drive_stream_report_equals_reference(kron7, method):
     np.testing.assert_array_equal(counter.current_edges(), ref_counter.current_edges())
     assert counter.last_update_stats.probe_method == method
     assert QUERY_KINDS == ("count", "per_node", "clustering", "transitivity")
+
+
+def test_run_service_is_the_drive_stream_alias(kron7):
+    from repro.launch.serve_graph import run_service as ref_run_service
+    from repro_torch.launch.serve_graph import run_service
+
+    n_nodes = int(kron7.max()) + 1
+    counter, rep = run_service(_stream(STREAM_GENERATORS, kron7), n_nodes=n_nodes,
+                               max_batches=4, queries_per_batch=1, device="cpu")
+    ref_counter, ref_rep = ref_run_service(_stream(REF_STREAMS, kron7), n_nodes=n_nodes,
+                                           max_batches=4, queries_per_batch=1)
+    assert rep.keys() == ref_rep.keys() and rep["n_batches"] == ref_rep["n_batches"] == 4
+    assert counter.count == ref_counter.count
+    np.testing.assert_array_equal(counter.per_node(), ref_counter.per_node())
 
 
 def test_drive_stream_metrics_sink_and_log(kron7):

@@ -224,6 +224,25 @@ def test_moe_matches_reference(e, k, t):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("router", ["zeros", "pairs"])
+def test_moe_ties_match_reference(router):
+    """Tied router probabilities: the lower expert index goes first, as under
+    ``jax.lax.top_k`` (a router of zeros ties all 8; repeated columns tie pairs)."""
+    rng = np.random.default_rng(21)
+    cfg = dataclasses.replace(REGISTRY["olmoe-1b-7b"].smoke_config(), n_experts=8, top_k=3)
+    jcfg = dataclasses.replace(JAX_REGISTRY["olmoe-1b-7b"].smoke_config(), n_experts=8, top_k=3)
+    p = moe_inputs(rng, 8, 64, 32)
+    if router == "zeros":
+        p["router"] = np.zeros_like(p["router"])
+    else:
+        p["router"] = np.repeat(p["router"][:, :4], 2, axis=1)
+    x = rng.normal(size=(6, 64)).astype(np.float32)
+    got = tfm._moe(torch.from_numpy(x), {n: torch.from_numpy(a) for n, a in p.items()}, cfg)
+    want = jax.jit(jtfm._moe, static_argnums=2)(jnp.asarray(x),
+                                                 {n: jnp.asarray(a) for n, a in p.items()}, jcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
 def test_moe_matches_dense_expert_sum():
     """The reference's identity: identical experts make the MoE the dense
     SwiGLU with the shared weights (the renormalised router weights sum to 1)."""
@@ -337,12 +356,29 @@ def test_serving_after_a_step_uses_the_new_weights():
                                                              cfg).numpy())
 
 
-def test_not_yet_ported_parts_raise():
+def test_not_yet_ported_parts_raise(tmp_path):
+    """``grad_specs=`` and ``shardings=`` are ported (tests/test_torch_sharding.py
+    holds the sharded step): on one device the specs change nothing, and a
+    sharded restore of an empty directory finds nothing, as the reference's.
+    The GNN and recsys archs still raise."""
+    from repro_torch.configs.lm_common import _param_specs
+    from repro_torch.distributed import Mesh, spec_for
+
     cfg = REGISTRY["qwen2-1.5b"].smoke_config()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        make_lm_train_step(cfg, 1, grad_specs={})
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        ckpt.restore_latest("/nonexistent", {}, shardings={})
+    _, psh, rules = _param_specs(cfg, Mesh(np.array(["cpu"] * 8, dtype=object).reshape(2, 4),
+                                           ("data", "model")))
+    toks, labels = lm_tokens(4, (1, 2, 12))
+    batch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+    metrics = []
+    for specs in (None, spec_for(rules, tfm.param_tree(tfm.init_params(cfg, 0, device="cpu")))):
+        params = tfm.init_params(cfg, 0, device="cpu")
+        step, init = make_lm_train_step(cfg, 1, grad_specs=specs, lr=optim.constant(1e-3))
+        _, _, m = step(params, init(params), batch)
+        metrics.append((float(m["loss"]), float(m["gnorm"]), tfm.params_to_numpy(params)))
+    assert metrics[0][:2] == metrics[1][:2]
+    for a, b in zip(jax.tree.leaves(metrics[0][2]), jax.tree.leaves(metrics[1][2])):
+        np.testing.assert_array_equal(a, b)
+    assert ckpt.restore_latest(str(tmp_path / "none"), {}, shardings=psh) is None
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         train_cli.get_arch("din")
 
