@@ -177,7 +177,31 @@ Phases, each of which fails loudly (non-zero exit, no final line):
              steps, against the step on the card: parameters within 2e-3,
              loss within 1e-4, the kernel launched once per replica for
              each launch of the single-card step; ``compress_grads`` on the
-             card bit-equal to the CPU; elastic restore (2, 4) → (4, 2).
+             card bit-equal to the CPU; elastic restore (2, 4) → (4, 2);
+17. gnn    — the four GNN archs (f32) at their configs' widths: each against
+             the CPU on a Cora-size graph (``full_graph_sm``: forward 1e-4 of
+             its max, loss 1e-5, every gradient leaf 1e-3 of its max, TF32
+             off); ``gcn-cora`` trained 30 steps there (the loss falls);
+             ``minibatch_lg`` at full size (a CSR of Reddit's 232,965 nodes
+             and 114,615,892 edges, endpoints uniform, made on the card):
+             ``graphsage-reddit`` 10 steps of batch 1,024 with fanout
+             (15, 10), the sampler inside the step, and ``gcn-cora``,
+             ``schnet``, ``egnn`` 2 steps each on the block graph; the
+             sampler's children on 64 seeds all CSR neighbours (or the
+             self-loop); ``molecule`` at full size (128 × 30 nodes × 64
+             edges): ``schnet`` and ``egnn`` 10 steps, EGNN equivariant on
+             the card within 2e-3; ``ogb_products`` at full size (uniform
+             edges, made on the card): ``gcn-cora`` 3 full-batch steps, then
+             the edge-partitioned GCN over ``Mesh(["cuda"] * 4, ("data",))``
+             against the single card (f32 2e-4, bf16 with ``smart_order``
+             3e-2, rtol and atol); the train CLI ``--arch gcn-cora --steps 30``;
+18. recsys — DIN ``full_config()`` (10^6 items, embed 18, seq 100): card vs
+             CPU at 1,024 rows (logits and loss 1e-5, gradients 1e-4 of each
+             leaf's max); ``train_batch`` (65,536) 5 AdamW steps;
+             ``serve_p99`` (512) and ``serve_bulk`` (262,144: the train
+             batch repeated, halved while the peak passes 70 GB) served;
+             ``retrieval_cand`` cut to 131,072 candidates, 64 of them equal to
+             ``apply`` within 1e-4; the train CLI ``--arch din --steps 10``.
 
 The ``kernels`` line gives rows 1-3 an ``analytics_launches`` field: their
 launches in phases 8a-8c; the count and per-node CSR kernels also a
@@ -188,7 +212,8 @@ launches included) and ``service_launches`` (8h, the CLI's excepted);
 rows 1-3 ``audit_traces``: their new launch signatures in 8j's two runs;
 row 4 (flash attention) ``train_launches`` (13), ``moe_train_launches``
 and ``moe_serve_launches`` (14), ``kv_int8_launches`` (15's two timed
-serves) and ``sharded_train_launches`` (16).
+serves) and ``sharded_train_launches`` (16).  Every row has ``gnn_launches`` (17)
+and ``recsys_launches`` (18), both 0: the GNN and DIN code is torch ops.
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.
 """
@@ -328,6 +353,35 @@ CARDS_MESH = (2, 2)
 # between the sound reading (0.0226) and the controls: one kv tile dropped
 # from the last q tile in every layer (0.040), attention zeroed (0.81)
 PREFILL_REL_L2 = 3e-2
+
+# phase 17: the four GNN archs (GNN_SHAPES, f32, TF32 off for the CPU
+# comparisons).  Card vs CPU at full_graph_sm: forward within GNN_HOLD_FWD of
+# the output's max, the loss GNN_HOLD_LOSS relative, each gradient leaf
+# GNN_HOLD_GRAD of its max (index_add's atomics reorder the card's sums)
+GNN_ARCHS = ("gcn-cora", "graphsage-reddit", "schnet", "egnn")
+GNN_SEED = 17
+GNN_HOLD_FWD, GNN_HOLD_LOSS, GNN_HOLD_GRAD = 1e-4, 1e-5, 1e-3
+GNN_CORA_STEPS, GNN_SAGE_STEPS, GNN_BLOCK_STEPS, GNN_MOL_STEPS, GNN_PRODUCTS_STEPS = \
+    30, 10, 2, 10, 3
+GNN_MEMBERSHIP_SEEDS = 64
+EGNN_EQUIV_TOL = 2e-3
+# the edge-partitioned GCN against the single card, rtol and atol: f32 as the
+# reference's shard_map test; bf16 looser, its partial aggregates summed in
+# bf16 in another order (and the single card's atomics in any order)
+GNN_MESH_BLOCKS = 4
+GNN_MESH_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+# phase 18: DIN full_config().  Card vs CPU at DIN_HOLD_ROWS rows: logits
+# within DIN_HOLD_FWD of their max, the loss DIN_HOLD_LOSS relative, each
+# gradient leaf DIN_HOLD_GRAD of its max.  retrieval_cand is cut from 10^6
+# candidates: its (C, 100, 144) f32 attention features alone take 57.6 GB
+# there, with h - t and h * t beside them more than one card holds
+DIN_SEED = 18
+DIN_HOLD_ROWS = 1024
+DIN_HOLD_FWD, DIN_HOLD_LOSS, DIN_HOLD_GRAD = 1e-5, 1e-5, 1e-4
+DIN_TRAIN_STEPS, DIN_CLI_STEPS = 5, 10
+DIN_P99_REPS, DIN_BULK_REPS, DIN_RETRIEVAL_REPS = 20, 3, 3
+DIN_BULK_PEAK = 70e9
+DIN_RETRIEVAL, DIN_RETRIEVAL_CHECK, DIN_RETRIEVAL_TOL = 131_072, 64, 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -3703,6 +3757,526 @@ def phase_lm_sharded_cards():
 
 
 # ---------------------------------------------------------------------------
+# phases 17-18: GNN and recsys (no kernel of the port on their path: the
+# reference's GNN and DIN code is XLA, so the port's is torch ops)
+# ---------------------------------------------------------------------------
+
+
+def kernel_launches() -> dict:
+    """Every kernel's launch count: the triangle-count family and flash attention."""
+    from repro_torch.kernels.flash_attention import launches as fa
+    from repro_torch.kernels.triangle_count import launches as tc
+
+    return {**tc, **fa}
+
+
+def reset_kernel_launches() -> None:
+    from repro_torch.kernels.flash_attention import reset_launches as reset_fa
+    from repro_torch.kernels.triangle_count import reset_launches as reset_tc
+
+    reset_tc()
+    reset_fa()
+
+
+def timed(fn):
+    """(fn()'s result, its seconds), the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def train_steps(step, params, opt, n, inputs_of):
+    """``n`` steps of ``step(params, opt, *inputs_of(i))``: the final params
+    and opt state, the losses and each step's seconds."""
+    losses, walls = [], []
+    for i in range(n):
+        inputs = inputs_of(i)
+        (params, opt, m), s = timed(lambda: step(params, opt, *inputs))
+        losses.append(float(m["loss"]))
+        walls.append(s)
+    return params, opt, losses, walls
+
+
+def all_finite(params) -> bool:
+    from repro_torch.optim.optimizers import tree_leaves
+
+    return all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+
+
+def gnn_hold_against_cpu():
+    """The four archs at their full-shape widths (``make_cfg(1433, 7)``) on a
+    Cora-size graph (``full_graph_sm``: 10,556 uniform random directed
+    edges) on the card and on the CPU: the same numpy weights, features,
+    labels and ``_synth_positions``, f32 with TF32 off.  Forward within
+    ``GNN_HOLD_FWD`` of the output's max, the loss (``_ce_loss``) within
+    ``GNN_HOLD_LOSS`` relative, each gradient leaf within ``GNN_HOLD_GRAD``
+    of its max.  Returns the numpy inputs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import value_and_grad
+    from repro_torch.configs.gnn_common import GNN_SHAPES, _ce_loss, _synth_positions
+    from repro_torch.data import graph_node_features
+    from repro_torch.optim.optimizers import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape = GNN_SHAPES["full_graph_sm"]
+    n, e = shape["n_nodes"], shape["n_edges"]
+    edges = np.random.default_rng(GNN_SEED).integers(0, n, size=(e, 2)).astype(np.int32)
+    feat, labels = graph_node_features(GNN_SEED, n, shape["d_feat"], shape["n_classes"])
+    pos = _synth_positions(torch.arange(n, dtype=torch.int32)).numpy()
+    arrays = (feat, pos, edges[:, 0].copy(), edges[:, 1].copy(), labels)
+    recs = []
+    for arch in GNN_ARCHS:
+        mod = get_arch(arch)
+        cfg = mod.make_cfg(shape["d_feat"], shape["n_classes"])
+        tree = mod.MODEL.params_to_numpy(mod.MODEL.init_params(cfg, GNN_SEED, device="cpu"))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            params = mod.MODEL.params_from_numpy(tree, cfg, device=dev)
+            x = [torch.from_numpy(a).to(dev) for a in arrays]
+            with torch.no_grad():
+                out = mod.MODEL.apply(params, cfg, *x[:4])
+            loss, grads = value_and_grad(
+                lambda p: _ce_loss(mod.MODEL.apply(p, cfg, *x[:4]), x[4]), params)
+            runs[dev] = (out, float(loss), tree_leaves(grads))
+        (out_g, loss_g, grads_g), (out_c, loss_c, grads_c) = runs["cuda"], runs["cpu"]
+        rec = {"arch": arch, "forward_rel": rel_to_max(out_g.cpu(), out_c), "loss_cuda": loss_g,
+               "loss_cpu": loss_c, "loss_rel": abs(loss_g - loss_c) / abs(loss_c),
+               "grad_rel": max(rel_to_max(a.cpu(), b) for a, b in zip(grads_g, grads_c)),
+               "grad_leaves": len(grads_c)}
+        recs.append(rec)
+        emit({"phase": "gnn_hold", **rec,
+              "tol": {"forward": GNN_HOLD_FWD, "loss": GNN_HOLD_LOSS, "grad": GNN_HOLD_GRAD}})
+        check(rec["forward_rel"] <= GNN_HOLD_FWD, f"gnn_hold {arch}: forward {rec}")
+        check(rec["loss_rel"] <= GNN_HOLD_LOSS, f"gnn_hold {arch}: loss {rec}")
+        check(rec["grad_rel"] <= GNN_HOLD_GRAD, f"gnn_hold {arch}: gradients {rec}")
+    return arrays, recs
+
+
+def gcn_cora_train(arrays):
+    """``gcn-cora`` at ``full_graph_sm``: ``GNN_CORA_STEPS`` steps of the
+    full-shape step (AdamW constant(1e-3)) on ``graph_node_features``'
+    community-structured labels; the loss falls."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_common import _full_step
+
+    mod = get_arch("gcn-cora")
+    step, opt_init, cfg = _full_step(mod.MODEL, mod.make_cfg, "full_graph_sm")
+    params = mod.MODEL.init_params(cfg, GNN_SEED, device="cuda")
+    x = [torch.from_numpy(a).to("cuda") for a in arrays]
+    _, _, losses, walls = train_steps(step, params, opt_init(params), GNN_CORA_STEPS,
+                                      lambda i: x)
+    rec = {"arch": "gcn-cora", "shape": "full_graph_sm", "steps": GNN_CORA_STEPS,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "step_ms_median": 1e3 * float(np.median(walls[1:]))}
+    emit({"phase": "gnn_cora_train", **rec})
+    check(all(finite(v) for v in losses) and losses[-1] < losses[0],
+          f"gnn_cora_train: the loss did not fall {losses}")
+    return rec
+
+
+def graph_on_card(shape, gen):
+    """A graph of ``shape``'s nodes and directed edges, endpoints uniform,
+    made on the card: (src, dst, features, labels), the features as
+    ``graph_node_features`` makes them (class centres + 0.5 · noise)."""
+    n, e, d, c = shape["n_nodes"], shape["n_edges"], shape["d_feat"], shape["n_classes"]
+    src = torch.randint(0, n, (e,), generator=gen, device="cuda", dtype=torch.int32)
+    dst = torch.randint(0, n, (e,), generator=gen, device="cuda", dtype=torch.int32)
+    labels = torch.randint(0, c, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    centres = torch.randn((c, d), generator=gen, device="cuda")
+    feat = centres.index_select(0, labels) + 0.5 * torch.randn((n, d), generator=gen,
+                                                                device="cuda")
+    return src, dst, feat, labels
+
+
+def csr_on_card(src, dst, n):
+    """(row_offsets, col) int32 with the edges' sources as rows.  The
+    endpoints are independent and uniform, so the destinations need no
+    reordering: the CSR's column array is ``dst`` as drawn."""
+    from repro_torch.distributed import ensure_fits_int32
+
+    row = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
+    torch.cumsum(torch.bincount(src.to(torch.int64), minlength=n), 0, out=row[1:])
+    ensure_fits_int32(int(row[-1]), "row_offsets")
+    return row.to(torch.int32), dst
+
+
+def sampled_children_are_neighbours(blocks, row, col, fanouts) -> dict:
+    """Every child of every parent in ``blocks`` is one of the parent's CSR
+    neighbours, or the parent itself where it has none."""
+    bad, pairs = 0, 0
+    for parents, children, f in zip(blocks.frontiers, blocks.frontiers[1:], fanouts):
+        p = parents.repeat_interleave(f)
+        start = row.index_select(0, p).to(torch.int64)
+        deg = row.index_select(0, p + 1).to(torch.int64) - start
+        lanes = torch.arange(int(deg.max()), device="cuda")
+        listed = col[(start[:, None] + lanes[None, :]).clamp_max(col.numel() - 1)]
+        hit = ((listed == children[:, None]) & (lanes[None, :] < deg[:, None])).any(1)
+        hit |= (deg == 0) & (children == p)
+        bad += int((~hit).sum())
+        pairs += children.numel()
+    return {"pairs": pairs, "not_neighbours": bad}
+
+
+def gnn_minibatch(gen):
+    """``minibatch_lg`` at its full size: a CSR of Reddit's node and edge
+    counts (uniform endpoints) with 602 features and 41 classes, made on
+    the card; ``graphsage-reddit`` trained ``GNN_SAGE_STEPS`` steps of batch
+    1,024 with fanout (15, 10), ``sample_blocks`` inside each step; the
+    sampler's children on ``GNN_MEMBERSHIP_SEEDS`` seeds checked against the
+    CSR; ``gcn-cora``, ``schnet`` and ``egnn`` ``GNN_BLOCK_STEPS`` steps each
+    through ``block_graph_from_frontiers``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_common import GNN_SHAPES, _minibatch_step
+    from repro_torch.graphs import sample_blocks
+
+    shape = GNN_SHAPES["minibatch_lg"]
+    n, b, fanout = shape["n_nodes"], shape["batch_nodes"], shape["fanout"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (src, dst, feat, labels), build_s = timed(lambda: graph_on_card(shape, gen))
+    (row, col), csr_s = timed(lambda: csr_on_card(src, dst, n))
+    del src
+    base = torch.cuda.memory_allocated()  # the graph: CSR, features, labels
+
+    def batch(i):
+        seeds = torch.randint(0, n, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        return gen, row, col, feat, seeds, labels.index_select(0, seeds)
+
+    recs = []
+    for arch, n_steps in (("graphsage-reddit", GNN_SAGE_STEPS), ("gcn-cora", GNN_BLOCK_STEPS),
+                          ("schnet", GNN_BLOCK_STEPS), ("egnn", GNN_BLOCK_STEPS)):
+        mod = get_arch(arch)
+        step, opt_init, cfg = _minibatch_step(mod.MODEL, mod.make_cfg, "minibatch_lg")
+        params = mod.MODEL.init_params(cfg, GNN_SEED, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, losses, walls = train_steps(step, params, opt_init(params), n_steps, batch)
+        step_s = float(np.median(walls[1:]))
+        rec = {"arch": arch, "shape": "minibatch_lg", "steps": n_steps, "losses": losses,
+               "step_ms_median": 1e3 * step_s, "seeds_per_s": b / step_s,
+               "peak_device_bytes": torch.cuda.max_memory_allocated(),
+               "peak_above_graph_bytes": torch.cuda.max_memory_allocated() - base}
+        if arch == "graphsage-reddit":
+            rec["split"] = minibatch_split(step, params, opt, batch(0), fanout)
+        recs.append(rec)
+        emit({"phase": "gnn_minibatch", **rec})
+        check(all(finite(v) for v in losses) and all_finite(params),
+              f"gnn_minibatch {arch}: non-finite loss or parameters {rec}")
+    seeds = torch.randint(0, n, (GNN_MEMBERSHIP_SEEDS,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    members = sampled_children_are_neighbours(sample_blocks(gen, row, col, seeds, fanout),
+                                              row, col, fanout)
+    graph = {"nodes": n, "edges": int(col.numel()), "d_feat": shape["d_feat"],
+             "classes": shape["n_classes"], "endpoints": "uniform", "build_s": build_s,
+             "csr_s": csr_s, "graph_bytes": base, "membership": members}
+    emit({"phase": "gnn_minibatch_graph", **graph})
+    check(members["not_neighbours"] == 0, f"gnn_minibatch: sampled non-neighbours {members}")
+    del row, col, feat, labels, dst
+    torch.cuda.empty_cache()
+    return {"graph": graph, "runs": recs}
+
+
+def minibatch_split(step, params, opt, inputs, fanout) -> dict:
+    """Where a ``minibatch_lg`` step's time goes: the sampler alone, the
+    frontiers' feature gathers alone (each timed on its own, synchronised),
+    and one whole step under the profiler."""
+    from repro_torch.graphs import sample_blocks
+
+    gen, row, col, feat, seeds, _ = inputs
+    blocks, sampler_s = timed(lambda: sample_blocks(gen, row, col, seeds, fanout))
+    _, gathers_s = timed(lambda: [feat.index_select(0, fr) for fr in blocks.frontiers])
+    return {"sampler_s": sampler_s, "gathers_s": gathers_s,
+            "gathered_bytes": sum(fr.numel() for fr in blocks.frontiers) * feat.shape[1] * 4,
+            "profile": profiled(lambda: step(params, opt, *inputs))}
+
+
+def gnn_molecule():
+    """``molecule`` at its full size (128 graphs × 30 nodes × 64 edges, 16
+    features): ``schnet`` and ``egnn`` ``GNN_MOL_STEPS`` steps each; EGNN's
+    output unchanged within ``EGNN_EQUIV_TOL`` under a rotation and a
+    translation of the positions, on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_common import GNN_SHAPES, _molecule_step
+    from repro_torch.graphs import random_molecule_batch
+
+    shape = GNN_SHAPES["molecule"]
+    gb = random_molecule_batch(shape["batch"], shape["n_nodes"], shape["n_edges"],
+                               shape["d_feat"], seed=GNN_SEED)
+    targets = np.random.default_rng(GNN_SEED).normal(size=shape["batch"]).astype(np.float32)
+    x = [torch.from_numpy(np.array(a)).to("cuda")
+         for a in (gb.node_feat, gb.positions, gb.edge_src, gb.edge_dst, targets)]
+    recs = []
+    for arch in ("schnet", "egnn"):
+        mod = get_arch(arch)
+        step, opt_init, cfg = _molecule_step(mod.MODEL, mod.make_cfg, "molecule")
+        params = mod.MODEL.init_params(cfg, GNN_SEED, device="cuda")
+        params, _, losses, walls = train_steps(step, params, opt_init(params), GNN_MOL_STEPS,
+                                               lambda i: x)
+        rec = {"arch": arch, "shape": "molecule", "steps": GNN_MOL_STEPS, "first_loss": losses[0],
+               "last_loss": losses[-1], "step_ms_median": 1e3 * float(np.median(walls[1:])),
+               "graphs_per_s": shape["batch"] / float(np.median(walls[1:]))}
+        check(all(finite(v) for v in losses) and all_finite(params),
+              f"gnn_molecule {arch}: non-finite loss or parameters {losses}")
+        if arch == "egnn":
+            rec["equivariance_max_abs"] = egnn_equivariance(mod.MODEL, params, cfg, gb)
+            check(rec["equivariance_max_abs"] <= EGNN_EQUIV_TOL,
+                  f"gnn_molecule: EGNN not equivariant on the card {rec}")
+        recs.append(rec)
+        emit({"phase": "gnn_molecule", **rec})
+    return recs
+
+
+def egnn_equivariance(model, params, cfg, gb) -> float:
+    """max |out(R·x + t) − out(x)| over the flattened molecule batch."""
+    b, nb = gb.node_feat.shape[:2]
+    off = (np.arange(b, dtype=np.int32) * nb)[:, None]
+    src = np.where(gb.edge_src >= 0, gb.edge_src + off, -1).reshape(-1)
+    dst = np.where(gb.edge_dst >= 0, gb.edge_dst + off, -1).reshape(-1)
+    th = 1.1
+    rot = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1.0]],
+                   np.float32)
+    pos = gb.positions.reshape(b * nb, 3)
+    moved = pos @ rot.T + np.array([3.0, -1.0, 2.0], np.float32)
+    feat, s, d = (torch.from_numpy(np.array(a)).to("cuda")
+                  for a in (gb.node_feat.reshape(b * nb, -1), src, dst))
+    with torch.no_grad():
+        outs = [model.apply(params, cfg, feat, torch.from_numpy(p).to("cuda"), s, d)
+                for p in (pos, moved)]
+    return float((outs[0] - outs[1]).abs().max())
+
+
+def gnn_products(gen):
+    """``ogb_products`` at its full size (uniform random edges, made on the
+    card): ``gcn-cora`` ``GNN_PRODUCTS_STEPS`` full-batch steps; then the
+    edge-partitioned GCN (``psum_axes=("data",)``, the edge lists split
+    over ``Mesh(["cuda"] * 4, ("data",))``) against the single-card forward
+    in f32 and in bf16 with ``smart_order``, each within ``GNN_MESH_TOL``
+    (rtol and atol); the bf16 difference relative to the output's max is
+    recorded beside it."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_common import GNN_SHAPES, _full_step
+    from repro_torch.distributed import Mesh, NamedSharding, P, device_put
+
+    shape = GNN_SHAPES["ogb_products"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (src, dst, feat, labels), build_s = timed(lambda: graph_on_card(shape, gen))
+    base = torch.cuda.memory_allocated()  # the graph: edges, features, labels
+    mod = get_arch("gcn-cora")
+    step, opt_init, cfg = _full_step(mod.MODEL, mod.make_cfg, "ogb_products")
+    params = mod.MODEL.init_params(cfg, GNN_SEED, device="cuda")
+    inputs = (feat, None, src, dst, labels)
+    params, opt, losses, walls = train_steps(step, params, opt_init(params), GNN_PRODUCTS_STEPS,
+                                             lambda i: inputs)
+    rec = {"arch": "gcn-cora", "shape": "ogb_products", "nodes": shape["n_nodes"],
+           "edges": shape["n_edges"], "endpoints": "uniform", "build_s": build_s,
+           "steps": GNN_PRODUCTS_STEPS, "losses": losses, "step_walls_s": walls,
+           "step_ms_median": 1e3 * float(np.median(walls[1:])),
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "peak_above_graph_bytes": torch.cuda.max_memory_allocated() - base,
+           "graph_bytes": base, "profile": profiled(lambda: step(params, opt, *inputs))}
+    emit({"phase": "gnn_products", **rec})
+    check(all(finite(v) for v in losses) and all_finite(params),
+          f"gnn_products: non-finite loss or parameters {rec}")
+
+    mesh = Mesh(["cuda"] * GNN_MESH_BLOCKS, ("data",))
+    check(shape["n_edges"] % GNN_MESH_BLOCKS == 0, "ogb_products: edges do not split")
+    sharding = NamedSharding(mesh, P("data"))
+    s_src, s_dst = device_put(src, sharding), device_put(dst, sharding)
+    parts = []
+    for dtype, smart in ((torch.float32, False), (torch.bfloat16, True)):
+        one = dataclasses.replace(cfg, dtype=dtype, smart_order=smart)
+        runs = {"single": lambda: mod.MODEL.apply(params, one, feat, None, src, dst),
+                "partitioned": lambda: mod.MODEL.apply(
+                    params, dataclasses.replace(one, psum_axes=("data",)), feat, None, s_src,
+                    s_dst, mesh=mesh)}
+        with torch.no_grad():  # a warm call each, then one timed
+            (single, parted), _ = zip(*(timed(f) for f in runs.values()))
+            secs = {k: timed(f)[1] for k, f in runs.items()}
+        tol = GNN_MESH_TOL[dtype]
+        a, w = parted.double(), single.double()
+        part = {"dtype": str(dtype), "smart_order": smart, "blocks": GNN_MESH_BLOCKS,
+                "out_dtype": str(parted.dtype), "max_abs": float((a - w).abs().max()),
+                "max_rel_to_max": rel_to_max(parted, single), "single_s": secs["single"],
+                "partitioned_s": secs["partitioned"], "tol": tol,
+                "within_tol": bool(((a - w).abs() <= tol + tol * w.abs()).all())}
+        parts.append(part)
+        emit({"phase": "gnn_partitioned", **part})
+        check(part["within_tol"] and parted.dtype == dtype,
+              f"gnn_partitioned: the edge-partitioned GCN differs from the single card {part}")
+    del src, dst, feat, labels, s_src, s_dst, params, single, parted
+    torch.cuda.empty_cache()
+    return {"train": rec, "partitioned": parts}
+
+
+def phase_gnn():
+    """Phase 17: the four GNN archs on their four shapes on the card, the
+    edge-partitioned GCN, and the train CLI on ``gcn-cora``.  Returns every
+    kernel's launches over the phase (none is on its path)."""
+    t0 = time.perf_counter()
+    reset_kernel_launches()
+    gen = torch.Generator(device="cuda").manual_seed(GNN_SEED)
+    arrays, hold = gnn_hold_against_cpu()
+    cora = gcn_cora_train(arrays)
+    minibatch = gnn_minibatch(gen)
+    molecule = gnn_molecule()
+    products = gnn_products(gen)
+    lines, cli_s = run_cli("train", "--arch", "gcn-cora", "--steps", str(GNN_CORA_STEPS))
+    first, last = float(lines[0].split()[3]), final_loss(lines)
+    launches = kernel_launches()
+    emit({"phase": "gnn", "train_cli": {"first_loss": first, "final_loss": last,
+                                        "seconds": cli_s, "last_lines": lines[-2:]},
+          "launches": launches, "phase_s": time.perf_counter() - t0})
+    check(last < first, f"train CLI gcn-cora: the loss did not fall {lines}")
+    check(not any(launches.values()), f"gnn: a kernel launched on the GNN path {launches}")
+    return launches, {"hold": hold, "cora": cora, "minibatch": minibatch, "molecule": molecule,
+                      "products": products}
+
+
+def din_serve(params, cfg, batch, reps) -> dict:
+    """``din.apply`` on ``batch`` under no_grad: the median of ``reps``
+    timed calls after one warm call, and the peak above the weights."""
+    from repro_torch.models.recsys import din
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out = din.apply(params, cfg, batch)
+        walls = [timed(lambda: din.apply(params, cfg, batch))[1] for _ in range(reps)]
+    rows = int(batch["target_item"].shape[0])
+    return {"rows": rows, "reps": reps, "ms_median": 1e3 * float(np.median(walls)),
+            "rows_per_s": rows / float(np.median(walls)),
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "peak_above_weights_bytes": torch.cuda.max_memory_allocated() - base,
+            "finite": bool(torch.isfinite(out).all())}
+
+
+def phase_recsys():
+    """Phase 18: DIN ``full_config()`` on the card: held against the CPU at
+    ``DIN_HOLD_ROWS`` rows, ``train_batch`` trained ``DIN_TRAIN_STEPS``
+    steps, ``serve_p99`` and ``serve_bulk`` served, ``retrieval_cand`` scored
+    at ``DIN_RETRIEVAL`` candidates, and the train CLI on ``din``.  Returns
+    every kernel's launches over the phase (none is on its path)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import value_and_grad
+    from repro_torch.data import din_batch
+    from repro_torch.models.recsys import din
+    from repro_torch.optim.optimizers import tree_leaves
+
+    t0 = time.perf_counter()
+    reset_kernel_launches()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mod = get_arch("din")
+    cfg = mod.full_config()
+    shapes = mod.DIN_SHAPES
+    train_rows = shapes["train_batch"]["batch"]
+    arrays = din_batch(DIN_SEED, 0, train_rows, cfg.seq_len, cfg.n_items, cfg.n_cates)
+    tree = din.params_to_numpy(din.init_params(cfg, DIN_SEED, device="cpu"))
+
+    # card vs CPU on the first DIN_HOLD_ROWS rows
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = din.params_from_numpy(tree, cfg, device=dev)
+        batch = {k: torch.from_numpy(v[:DIN_HOLD_ROWS]).to(dev) for k, v in arrays.items()}
+        with torch.no_grad():
+            logits = din.apply(params, cfg, batch)
+        loss, grads = value_and_grad(lambda p: din.loss_fn(p, cfg, batch), params)
+        runs[dev] = (logits, float(loss), tree_leaves(grads))
+    (lg, sg, gg), (lc, sc, gc) = runs["cuda"], runs["cpu"]
+    hold = {"rows": DIN_HOLD_ROWS, "logits_rel": rel_to_max(lg.cpu(), lc), "loss_cuda": sg,
+            "loss_cpu": sc, "loss_rel": abs(sg - sc) / abs(sc),
+            "grad_rel": max(rel_to_max(a.cpu(), b) for a, b in zip(gg, gc)), "grad_leaves": len(gc),
+            "tol": {"logits": DIN_HOLD_FWD, "loss": DIN_HOLD_LOSS, "grad": DIN_HOLD_GRAD}}
+    emit({"phase": "din_hold", **hold})
+    check(hold["logits_rel"] <= DIN_HOLD_FWD and hold["loss_rel"] <= DIN_HOLD_LOSS
+          and hold["grad_rel"] <= DIN_HOLD_GRAD, f"din_hold: card vs CPU {hold}")
+    del runs, lg, lc, gg, gc
+
+    # train_batch at its full size
+    params = din.params_from_numpy(tree, cfg, device="cuda")
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in arrays.items()}
+    step, opt_init = mod._train_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, losses, walls = train_steps(step, params, opt_init(params), DIN_TRAIN_STEPS,
+                                             lambda i: (batch,))
+    step_s = float(np.median(walls[1:]))
+    train = {"shape": "train_batch", "rows": train_rows, "steps": DIN_TRAIN_STEPS,
+             "losses": losses, "step_walls_s": walls, "step_ms_median": 1e3 * step_s,
+             "samples_per_s": train_rows / step_s,
+             "peak_device_bytes": torch.cuda.max_memory_allocated(),
+             "profile": profiled(lambda: step(params, opt, batch))}
+    emit({"phase": "din_train", **train})
+    check(all(finite(v) for v in losses) and all_finite(params),
+          f"din_train: non-finite loss or parameters {train}")
+
+    # serving: serve_p99 (the first rows of the batch) and serve_bulk (the
+    # train batch repeated), halved while the peak passes DIN_BULK_PEAK
+    params = din.params_from_numpy(tree, cfg, device="cuda")
+    serve_batch = {k: v for k, v in batch.items() if k != "label"}
+    p99 = din_serve(params, cfg, {k: v[:shapes["serve_p99"]["batch"]]
+                                  for k, v in serve_batch.items()}, DIN_P99_REPS)
+    emit({"phase": "din_serve", "shape": "serve_p99", **p99})
+    bulk_rows, cuts = shapes["serve_bulk"]["batch"], []
+    while True:
+        reps = -(-bulk_rows // train_rows)
+        bulk_batch = {k: v.repeat(reps, *([1] * (v.dim() - 1)))[:bulk_rows]
+                      for k, v in serve_batch.items()}
+        bulk = din_serve(params, cfg, bulk_batch, DIN_BULK_REPS)
+        del bulk_batch
+        if bulk["peak_device_bytes"] <= DIN_BULK_PEAK or bulk_rows <= train_rows:
+            break
+        cuts.append({"rows": bulk_rows, "peak_device_bytes": bulk["peak_device_bytes"]})
+        bulk_rows //= 2
+    bulk["cuts"] = cuts
+    emit({"phase": "din_serve", "shape": "serve_bulk", **bulk})
+    check(p99["finite"] and bulk["finite"], f"din_serve: non-finite logits {p99} {bulk}")
+
+    # retrieval_cand, cut to DIN_RETRIEVAL candidates
+    gen = torch.Generator(device="cuda").manual_seed(DIN_SEED)
+    cand = torch.randint(0, cfg.n_items, (DIN_RETRIEVAL,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    query = {"hist_items": batch["hist_items"][:1], "hist_cates": batch["hist_cates"][:1],
+             "cand_items": cand, "cand_cates": cand % cfg.n_cates}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        scores = din.score_candidates(params, cfg, query)
+        walls = [timed(lambda: din.score_candidates(params, cfg, query))[1]
+                 for _ in range(DIN_RETRIEVAL_REPS)]
+        k = DIN_RETRIEVAL_CHECK
+        want = din.apply(params, cfg, {"hist_items": query["hist_items"].repeat(k, 1),
+                                       "hist_cates": query["hist_cates"].repeat(k, 1),
+                                       "target_item": cand[:k],
+                                       "target_cate": query["cand_cates"][:k]})
+    err = float((scores[:k] - want).abs().max())
+    retrieval = {"shape": "retrieval_cand", "candidates": DIN_RETRIEVAL,
+                 "reference_candidates": shapes["retrieval_cand"]["n_candidates"],
+                 "ms_median": 1e3 * float(np.median(walls)),
+                 "candidates_per_s": DIN_RETRIEVAL / float(np.median(walls)),
+                 "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                 "checked": k, "max_abs_vs_apply": err, "tol": DIN_RETRIEVAL_TOL}
+    emit({"phase": "din_retrieval", **retrieval})
+    check(bool(torch.isfinite(scores).all()) and err <= DIN_RETRIEVAL_TOL,
+          f"din_retrieval: {retrieval}")
+    del params, batch, serve_batch, scores, query
+    torch.cuda.empty_cache()
+
+    lines, cli_s = run_cli("train", "--arch", "din", "--steps", str(DIN_CLI_STEPS))
+    launches = kernel_launches()
+    emit({"phase": "recsys", "train_cli": {"final_loss": final_loss(lines), "seconds": cli_s,
+                                           "last_lines": lines[-2:]},
+          "launches": launches, "phase_s": time.perf_counter() - t0})
+    check(finite(final_loss(lines)), f"train CLI din: {lines}")
+    check(not any(launches.values()), f"recsys: a kernel launched on the DIN path {launches}")
+    return launches, {"hold": hold, "train": train, "serve_p99": p99, "serve_bulk": bulk,
+                      "retrieval": retrieval}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3798,6 +4372,8 @@ def main() -> int:
     moe_train_launches, moe_serve_launches, _ = phase_moe_full()
     kv_int8_launches, _ = phase_kv_int8()
     sharded_launches, _ = phase_lm_sharded()
+    gnn_launches, _ = phase_gnn()
+    recsys_launches, _ = phase_recsys()
 
     kernels = []
     for k in CSR_KERNELS:
@@ -3850,6 +4426,11 @@ def main() -> int:
     check(train_launches > 0, "flash_attention was not launched on the training path")
     check(kv_int8_launches > 0, "flash_attention was not launched on the int8-cache serve")
     check(sharded_launches > 0, "flash_attention was not launched by the sharded step")
+    for row in kernels:  # phases 17-18: no kernel of the port is on their path
+        row["gnn_launches"] = gnn_launches[row["name"]]
+        row["recsys_launches"] = recsys_launches[row["name"]]
+        check(row["gnn_launches"] == 0 and row["recsys_launches"] == 0,
+              f"{row['name']} launched on the GNN or recsys path")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "nvidia_smi": smi_line})
     print(json.dumps({"kernels": kernels}), flush=True)

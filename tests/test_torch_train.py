@@ -40,7 +40,7 @@ from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.attention import flash_attention_torch  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves, tree_map  # noqa: E402
 
-LM_ARCHS = sorted(REGISTRY)
+LM_ARCHS = sorted(a for a, m in REGISTRY.items() if m.FAMILY == "lm")
 OPT = dict(rtol=1e-6, atol=1e-6)
 
 
@@ -356,11 +356,12 @@ def test_serving_after_a_step_uses_the_new_weights():
                                                              cfg).numpy())
 
 
-def test_not_yet_ported_parts_raise(tmp_path):
+def test_not_yet_ported_parts_raise(tmp_path, monkeypatch, capsys):
     """``grad_specs=`` and ``shardings=`` are ported (tests/test_torch_sharding.py
     holds the sharded step): on one device the specs change nothing, and a
     sharded restore of an empty directory finds nothing, as the reference's.
-    The GNN and recsys archs still raise."""
+    The recsys arch resolves, and the train CLI trains it 3 smoke steps on
+    the CPU."""
     from repro_torch.configs.lm_common import _param_specs
     from repro_torch.distributed import Mesh, spec_for
 
@@ -379,8 +380,13 @@ def test_not_yet_ported_parts_raise(tmp_path):
     for a, b in zip(jax.tree.leaves(metrics[0][2]), jax.tree.leaves(metrics[1][2])):
         np.testing.assert_array_equal(a, b)
     assert ckpt.restore_latest(str(tmp_path / "none"), {}, shardings=psh) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        train_cli.get_arch("din")
+    assert train_cli.get_arch("din").FAMILY == "recsys"
+    monkeypatch.setattr(sys, "argv", ["train", "--arch", "din", "--steps", "3", "--device", "cpu",
+                                      "--log-every", "1"])
+    train_cli.main()
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [line.split()[:2] for line in lines[:3]] == [["step", "0"], ["step", "1"], ["step", "2"]]
+    assert lines[3].startswith("done: final loss ") and np.isfinite(float(lines[3].split()[3]))
 
 
 # ---------------------------------------------------------------------------
