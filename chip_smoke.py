@@ -201,7 +201,19 @@ Phases, each of which fails loudly (non-zero exit, no final line):
              ``serve_p99`` (512) and ``serve_bulk`` (262,144: the train
              batch repeated, halved while the peak passes 70 GB) served;
              ``retrieval_cand`` cut to 131,072 candidates, 64 of them equal to
-             ``apply`` within 1e-4; the train CLI ``--arch din --steps 10``.
+             ``apply`` within 1e-4; the train CLI ``--arch din --steps 10``;
+19. dryrun — the analysis tools: one more step each of phase 13's
+             qwen2-1.5b training, phase 17's full-batch ``ogb_products`` GCN
+             and phase 18's DIN ``train_batch`` runs on the card under the
+             cost walker (``repro_torch.launch.flops``), and the same step
+             is traced on ``meta`` copies of its arguments through
+             ``DryRunSpec.lower()``: matmul FLOPs card = meta exactly (qwen2
+             outside attention); the attention kernel charged as its
+             launches (112) × 4·B·Hq·D·(causal pairs), printed beside the
+             plain version's dots on ``meta``; each step's roofline on one
+             card (H100 datasheet model) over its measured median; and the
+             dry-run CLI on ``triangles kron21`` and ``qwen2-1.5b
+             decode_32k`` over the 256-GPU mesh (exit 0, finite terms).
 
 The ``kernels`` line gives rows 1-3 an ``analytics_launches`` field: their
 launches in phases 8a-8c; the count and per-node CSR kernels also a
@@ -382,6 +394,11 @@ DIN_TRAIN_STEPS, DIN_CLI_STEPS = 5, 10
 DIN_P99_REPS, DIN_BULK_REPS, DIN_RETRIEVAL_REPS = 20, 3, 3
 DIN_BULK_PEAK = 70e9
 DIN_RETRIEVAL, DIN_RETRIEVAL_CHECK, DIN_RETRIEVAL_TOL = 131_072, 64, 1e-4
+# phase 19: the attention kernel's launches in one qwen2-1.5b train step
+# (28 layers × accum 2, each forward run twice under full remat)
+TRAIN_LAYERS_LAUNCHES = 28 * TRAIN_ACCUM * 2
+# two production cells through the dry-run CLI, on the 256-GPU mesh
+DRYRUN_CELLS = (("triangles", "kron21"), ("qwen2-1.5b", "decode_32k"))
 
 
 class SmokeFailure(RuntimeError):
@@ -3007,14 +3024,15 @@ def phase_attention_timing(rate):
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
     from repro_torch.models.attention import flash_attention_torch
 
-    b, hq, _, sq, skv, d, causal = ATTN_FULL
+    from repro_torch.launch.flops import attention_cost
+
+    b, hq, hkv, sq, skv, d, causal = ATTN_FULL
     rng = np.random.default_rng(13)
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = attn_inputs(rng, ATTN_FULL, dtype)
-        el = q.element_size()
-        n_bytes = el * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read; o written
-        flop = 4 * b * hq * d * causal_pairs(sq, skv)
+        # q, k, v read and o written once; 4·D FLOP per valid pair and head
+        flop, n_bytes = attention_cost(b, hq, hkv, sq, skv, d, causal, q.element_size())
         peak = BF16_TENSOR_FLOP_PER_S if dtype == torch.bfloat16 else SCALAR_OPS_PER_S
         t_bytes, t_ops = n_bytes / rate, flop / peak
         kernel = lambda: flash_attention_cuda(q, k, v, causal=causal)  # noqa: E731
@@ -3223,6 +3241,8 @@ def phase_lm_train():
     prof["attention_backward_calls"] = len(bwd.events)
     emit({"phase": "lm_train_profile", "window": "one train step", **prof})
     rec["profile"] = prof
+    rec["dryrun"] = walked_step(step_fn, (params, opt_state, batch), cfg.dtype,
+                                rec["model_flop_per_step"], step_s, cfg=cfg)
     del params, opt_state, batch, m
     torch.cuda.empty_cache()
     rec["hold"] = train_hold_against_cpu()
@@ -4081,6 +4101,8 @@ def gnn_products(gen):
     emit({"phase": "gnn_products", **rec})
     check(all(finite(v) for v in losses) and all_finite(params),
           f"gnn_products: non-finite loss or parameters {rec}")
+    walked = walked_step(step, (params, opt, *inputs), cfg.dtype, _gnn_model_flops(mod, shape),
+                         float(np.median(walls[1:])))
 
     mesh = Mesh(["cuda"] * GNN_MESH_BLOCKS, ("data",))
     check(shape["n_edges"] % GNN_MESH_BLOCKS == 0, "ogb_products: edges do not split")
@@ -4109,7 +4131,7 @@ def gnn_products(gen):
               f"gnn_partitioned: the edge-partitioned GCN differs from the single card {part}")
     del src, dst, feat, labels, s_src, s_dst, params, single, parted
     torch.cuda.empty_cache()
-    return {"train": rec, "partitioned": parts}
+    return {"train": rec, "partitioned": parts, "dryrun": walked}
 
 
 def phase_gnn():
@@ -4133,7 +4155,7 @@ def phase_gnn():
     check(last < first, f"train CLI gcn-cora: the loss did not fall {lines}")
     check(not any(launches.values()), f"gnn: a kernel launched on the GNN path {launches}")
     return launches, {"hold": hold, "cora": cora, "minibatch": minibatch, "molecule": molecule,
-                      "products": products}
+                      "products": products, "dryrun": products["dryrun"]}
 
 
 def din_serve(params, cfg, batch, reps) -> dict:
@@ -4212,6 +4234,8 @@ def phase_recsys():
     emit({"phase": "din_train", **train})
     check(all(finite(v) for v in losses) and all_finite(params),
           f"din_train: non-finite loss or parameters {train}")
+    walked = walked_step(step, (params, opt, batch), cfg.dtype,
+                         mod._flops(cfg, train_rows, cfg.seq_len, True), step_s)
 
     # serving: serve_p99 (the first rows of the batch) and serve_bulk (the
     # train batch repeated), halved while the peak passes DIN_BULK_PEAK
@@ -4273,7 +4297,156 @@ def phase_recsys():
     check(finite(final_loss(lines)), f"train CLI din: {lines}")
     check(not any(launches.values()), f"recsys: a kernel launched on the DIN path {launches}")
     return launches, {"hold": hold, "train": train, "serve_p99": p99, "serve_bulk": bulk,
-                      "retrieval": retrieval}
+                      "retrieval": retrieval, "dryrun": walked}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the dry-run tools on the card
+# ---------------------------------------------------------------------------
+
+
+def to_meta(x, cfg=None):
+    """``x`` with every tensor as a ``meta`` tensor of its shape and dtype
+    (a transformer's parameters stay a ``TransformerParams`` of ``cfg``)."""
+    from repro_torch.models import transformer as tfm
+
+    if isinstance(x, tfm.TransformerParams):
+        return tfm.params_from_tree(to_meta(tfm.param_tree(x)), cfg)
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("meta").requires_grad_(x.requires_grad)
+    if isinstance(x, dict):
+        return {k: to_meta(v, cfg) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(to_meta(v, cfg) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_meta(v, cfg) for v in x)
+    return x
+
+
+def walked_step(step, args, dtype, model_flops, measured_s, cfg=None) -> dict:
+    """One more ``step(*args)`` on the card under the cost walker, and
+    ``meta`` copies of the arguments (taken first: the step updates them
+    in place) for phase 19 to trace the same step on."""
+    from repro_torch.launch.flops import CostWalker
+
+    meta_args = to_meta(args, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with CostWalker() as walker:
+        step(*args)
+        torch.cuda.synchronize()
+    return {"step": step, "meta_args": meta_args, "dtype": dtype, "model_flops": model_flops,
+            "measured_s": measured_s, "walker": walker.report(),
+            "walked_s": time.perf_counter() - t0}
+
+
+def _gnn_model_flops(mod, shape) -> float:
+    """The reference's FLOP model of a full-graph GCN step on ``shape``."""
+    from repro_torch.configs.gnn_common import _estimate_flops
+
+    return _estimate_flops(2.0 * 16, 2.0 * shape["d_feat"] * 16, shape["n_nodes"],
+                           shape["n_edges"])
+
+
+def dot_flops(cost, region=None) -> float:
+    """A cost's matmul FLOPs, or those inside ``region``."""
+    if region is None:
+        return cost["by_prim"].get("dot_general", 0.0)
+    return cost["by_region"].get(region, {}).get("dot_flops", 0.0)
+
+
+def dryrun_cli(shape_args, out_dir):
+    """Start ``python -m repro_torch.launch.dryrun`` on one production cell."""
+    arch, shape = shape_args
+    out = os.path.join(out_dir, f"{arch}_{shape}.jsonl")
+    env = {**os.environ, "PYTHONPATH": SRC + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                             "--shape", shape, "--json", out], env=env, cwd=HERE,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def phase_dryrun(smi_line, steps):
+    """Phase 19: the three steps walked on the card in phases 13, 17 and 18
+    traced again on ``meta`` copies of their arguments through
+    ``DryRunSpec.lower()``; matmul FLOPs card = meta (qwen2: outside
+    attention; the kernel's launches × its formula against the plain
+    version's dots on meta); each step's roofline on one card against its
+    measured median; two production cells through the dry-run CLI."""
+    from repro_torch.configs.base import DryRunSpec
+    from repro_torch.launch.flops import attention_cost
+    from repro_torch.launch.roofline import roofline_terms
+
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    clis = [dryrun_cli(cell, out_dir) for cell in DRYRUN_CELLS]
+    recs = {}
+    for name, d in steps.items():
+        spec = DryRunSpec(step_fn=d["step"], args=d["meta_args"], in_shardings=None,
+                          compute_dtype=d["dtype"], model_flops=d["model_flops"])
+        t1 = time.perf_counter()
+        lowered = spec.lower()
+        trace_s = time.perf_counter() - t1
+        card, meta = d["walker"], lowered.cost
+        roof = roofline_terms(lowered, 1, d["model_flops"], walker_cost=card)
+        rec = {"step": name, "nvidia_smi": smi_line, "card_dot_flops": dot_flops(card),
+               "meta_dot_flops": dot_flops(meta), "card_flops": card["flops"],
+               "meta_flops": meta["flops"], "card_bytes": card["bytes"],
+               "meta_bytes": meta["bytes"], "meta_trace_s": trace_s,
+               "walked_step_s": d["walked_s"], "kernels": card["kernels"],
+               "roofline": {k: roof.to_dict()[k] for k in (
+                   "compute_s", "memory_s", "bottleneck", "step_time_s", "peak_flops",
+                   "compute_dtype", "roofline_fraction")},
+               "measured_step_s": d["measured_s"],
+               "measured_roofline_fraction": roof.step_time_s / d["measured_s"],
+               "meta_temp_bytes": lowered.temp_bytes}
+        card_out = rec["card_dot_flops"] - dot_flops(card, "attention")
+        meta_out = rec["meta_dot_flops"] - dot_flops(meta, "attention")
+        rec["card_dot_flops_outside_attention"] = card_out
+        rec["meta_dot_flops_outside_attention"] = meta_out
+        fa = card["kernels"].get("flash_attention")
+        if fa is not None:
+            per_launch, _ = attention_cost(TRAIN_MICRO, 12, 2, TRAIN_SEQ, TRAIN_SEQ, 128, True, 2)
+            rec["attention"] = {
+                "kernel_launches": fa["launches"], "kernel_flops_charged": fa["flops"],
+                "kernel_flops_per_launch": per_launch,
+                "card_plain_backward_dot_flops": dot_flops(card, "attention"),
+                "meta_plain_dot_flops": dot_flops(meta, "attention"),
+                "meta_over_charged": dot_flops(meta, "attention") / fa["flops"]}
+        emit({"phase": "dryrun_step", **rec})
+        recs[name] = rec
+        check(card_out == meta_out and card_out > 0,
+              f"dryrun: {name}: matmul FLOPs outside attention card {card_out} != meta "
+              f"{meta_out}")
+        if fa is None:
+            check(rec["card_dot_flops"] == rec["meta_dot_flops"],
+                  f"dryrun: {name}: matmul FLOPs card != meta {rec}")
+        else:
+            expect = TRAIN_LAYERS_LAUNCHES
+            check(fa["launches"] == expect and fa["flops"] == fa["launches"] * per_launch,
+                  f"dryrun: {name}: attention charged {fa}, expected {expect} launches of "
+                  f"{per_launch}")
+        check(all(np.isfinite(v) and v > 0 for v in (roof.compute_s, roof.memory_s,
+                                                      roof.step_time_s)),
+              f"dryrun: {name}: roofline {rec['roofline']}")
+    cells = []
+    for (proc, out), (arch, shape) in zip(clis, DRYRUN_CELLS):
+        text, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"dryrun CLI {arch} {shape} exited {proc.returncode}: "
+                                    f"{text[-2000:]}")
+        with open(out) as f:
+            cell = json.loads(f.readline())
+        terms = [cell[k] for k in ("compute_s", "memory_s", "collective_s", "step_time_s",
+                                   "roofline_fraction")]
+        keep = {k: cell[k] for k in ("arch", "shape", "mesh", "chips", "compute_s", "memory_s",
+                                     "collective_s", "bottleneck", "roofline_fraction",
+                                     "trace_s", "warnings")}
+        emit({"phase": "dryrun_cli", "nvidia_smi": smi_line, **keep})
+        cells.append(keep)
+        check(cell["chips"] == 256 and all(np.isfinite(terms)),
+              f"dryrun CLI {arch} {shape}: {keep}")
+    emit({"phase": "dryrun", "nvidia_smi": smi_line, "phase_s": time.perf_counter() - t0})
+    return recs, cells
 
 
 # ---------------------------------------------------------------------------
@@ -4366,14 +4539,17 @@ def main() -> int:
     fa_launches, _ = phase_lm_serve(rate)
     fa_time = phase_attention_timing(rate)
     phase_train_attention(rate)
-    train_launches, _ = phase_lm_train()
+    train_launches, lm_train = phase_lm_train()
     phase_train_cli()
     moe_layer_hold()
     moe_train_launches, moe_serve_launches, _ = phase_moe_full()
     kv_int8_launches, _ = phase_kv_int8()
     sharded_launches, _ = phase_lm_sharded()
-    gnn_launches, _ = phase_gnn()
-    recsys_launches, _ = phase_recsys()
+    gnn_launches, gnn = phase_gnn()
+    recsys_launches, recsys = phase_recsys()
+    phase_dryrun(smi_line, {"qwen2-1.5b train": lm_train["dryrun"],
+                            "gcn-cora ogb_products": gnn["dryrun"],
+                            "din train_batch": recsys["dryrun"]})
 
     kernels = []
     for k in CSR_KERNELS:

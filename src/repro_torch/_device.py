@@ -3,7 +3,8 @@
 Every entry point (:class:`repro_torch.core.TriangleCounter`, the CLI)
 runs on ``cuda`` by default and raises when no card is visible.  The CPU
 is used only when the caller asks for it — the tests do — so a run never
-lands on the host without saying so.
+lands on the host without saying so.  ``meta`` (shapes without memory, the
+dry run's device: :mod:`repro_torch.launch.dryrun`) likewise only when named.
 """
 from __future__ import annotations
 
@@ -27,8 +28,8 @@ def resolve_device(device=None) -> torch.device:
             "torch.cuda.is_available() is False here; pass device='cpu' "
             "(CLI: --device cpu) to run on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; expected 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; expected 'cuda', 'cpu' or 'meta'")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -50,6 +50,8 @@ __all__ = [
     "CompileAuditor",
     "KERNEL_ENTRY_POINTS",
     "record_launch",
+    "add_launch_listener",
+    "remove_launch_listener",
     "record_build",
     "records_launches",
 ]
@@ -159,6 +161,7 @@ KERNEL_ENTRY_POINTS = (
 _registry_lock = threading.Lock()
 _signatures: dict[str, set] = {name: set() for name in KERNEL_ENTRY_POINTS}
 _builds: dict[str, int] = {}
+_listeners: list = []
 
 
 def _traced(x):
@@ -198,10 +201,25 @@ def _signature(args, static: dict) -> tuple:
 
 
 def record_launch(name: str, args, **static) -> None:
-    """Record one launch of kernel entry point ``name`` in the registry."""
+    """Record one launch of kernel entry point ``name`` in the registry, and
+    hand it to each launch listener (the cost walker's)."""
     sig = _signature(args, static)
     with _registry_lock:
         _signatures.setdefault(name, set()).add(sig)
+        listeners = list(_listeners)
+    for fn in listeners:
+        fn(name, args, static)
+
+
+def add_launch_listener(fn) -> None:
+    """Call ``fn(name, args, static)`` at every recorded launch."""
+    with _registry_lock:
+        _listeners.append(fn)
+
+
+def remove_launch_listener(fn) -> None:
+    with _registry_lock:
+        _listeners.remove(fn)
 
 
 def record_build(library: str) -> None:

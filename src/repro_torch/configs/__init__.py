@@ -1,9 +1,4 @@
-"""Architecture registry of the port: ``--arch <id>`` for the launchers.
-
-The five LM architectures, the four GNNs and DIN are ported.  The
-``triangles`` id of the JAX package (its dry-run cells) raises "not yet
-ported".
-"""
+"""Architecture registry of the port: ``--arch <id>`` for every launcher."""
 from __future__ import annotations
 
 from . import (
@@ -17,6 +12,7 @@ from . import (
     olmoe_1b_7b,
     qwen2_1_5b,
     schnet,
+    triangles,
 )
 
 ARCH_MODULES = [
@@ -30,24 +26,23 @@ ARCH_MODULES = [
     graphsage_reddit,
     egnn,
     din,
+    triangles,
 ]
 
 REGISTRY = {m.ARCH_ID: m for m in ARCH_MODULES}
 
-# the JAX package's other arch id, whose config waits for ROADMAP queue A:
-# the triangle-counting dry-run cells for A9
-NOT_PORTED_ARCHS = ("triangles",)
+# the 40 assigned (arch × shape) cells; the paper's own `triangles` cells
+# are additional
+ASSIGNED_CELLS = [
+    (m.ARCH_ID, s) for m in ARCH_MODULES if m.ARCH_ID != "triangles" for s in m.SHAPES
+]
+ALL_CELLS = ASSIGNED_CELLS + [("triangles", s) for s in triangles.SHAPES]
 
 
 def get_arch(arch_id: str):
-    if arch_id in REGISTRY:
-        return REGISTRY[arch_id]
-    if arch_id == "triangles":
-        raise NotImplementedError(
-            "arch 'triangles' (the dry-run cells) is not yet ported (ROADMAP A9: the "
-            "analysis tools); use the JAX package repro for it"
-        )
-    raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(REGISTRY)}")
+    if arch_id not in REGISTRY:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(REGISTRY)}")
+    return REGISTRY[arch_id]
 
 
-__all__ = ["REGISTRY", "ARCH_MODULES", "NOT_PORTED_ARCHS", "get_arch"]
+__all__ = ["REGISTRY", "ARCH_MODULES", "ASSIGNED_CELLS", "ALL_CELLS", "get_arch"]

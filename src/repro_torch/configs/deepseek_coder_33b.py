@@ -1,11 +1,12 @@
 """deepseek-coder-33b [arXiv:2401.14196]: 62L, d=7168, 56H (kv=8), dense llama arch."""
 from repro_torch.models.transformer import TransformerConfig
 
-from .lm_common import LM_SHAPES, lm_smoke_config
+from .lm_common import LM_SHAPES, build_lm_dryrun, lm_smoke_config
 
 ARCH_ID = "deepseek-coder-33b"
 FAMILY = "lm"
 SHAPES = tuple(LM_SHAPES)
+MICRO_TARGET = 1  # 33B dense: one 4k sequence per device per micro-step
 
 
 def full_config() -> TransformerConfig:
@@ -22,3 +23,7 @@ def full_config() -> TransformerConfig:
 
 def smoke_config() -> TransformerConfig:
     return lm_smoke_config(full_config())
+
+
+def build_dryrun(shape: str, mesh, variant: str = "baseline"):
+    return build_lm_dryrun(full_config(), shape, mesh, MICRO_TARGET, variant=variant)

@@ -17,8 +17,12 @@ def smoke_config() -> egnn.EGNNConfig:
 
 
 def build_dryrun(shape: str, mesh, variant: str = "baseline"):
-    """The reference's dry-run cell; raises until ROADMAP A9."""
-    return build_gnn_dryrun(ARCH_ID, shape, mesh, variant=variant)
+    # φ_e + φ_x per edge: ≈ 2·(129·64 + 64·64 + 64·64 + 64) FLOPs × 4 layers
+    return build_gnn_dryrun(
+        ARCH_ID, egnn, make_cfg, shape, mesh, variant=variant,
+        flops_per_edge=4 * 2.0 * (129 * 64 + 2 * 64 * 64),
+        flops_per_node=4 * 2.0 * (128 * 64 + 64 * 64),
+    )
 
 
 MODEL = egnn

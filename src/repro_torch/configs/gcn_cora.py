@@ -17,8 +17,12 @@ def smoke_config() -> gcn.GCNConfig:
 
 
 def build_dryrun(shape: str, mesh, variant: str = "baseline"):
-    """The reference's dry-run cell; raises until ROADMAP A9."""
-    return build_gnn_dryrun(ARCH_ID, shape, mesh, variant=variant)
+    # per-layer ≈ 2·d_in·d_out FLOPs/node (matmul) + 2·d_out FLOPs/edge (agg)
+    return build_gnn_dryrun(
+        ARCH_ID, gcn, make_cfg, shape, mesh, variant=variant,
+        flops_per_edge=2.0 * 16,
+        flops_per_node=2.0 * GNN_SHAPES.get(shape, {}).get("d_feat", 64) * 16,
+    )
 
 
 MODEL = gcn

@@ -19,21 +19,31 @@ faithful ``apply_blocks``.
 
 The train steps of the reference's ``build_gnn_dryrun`` are here as
 :func:`_full_step`, :func:`_minibatch_step` and :func:`_molecule_step`;
-the dry run itself (``build_gnn_dryrun``) waits for ROADMAP A9.
+:func:`build_gnn_dryrun` traces them on ``meta`` tensors.
+
+Distribution (the reference's, paper-derived): node features replicated,
+**edge lists partitioned** across the whole mesh, partial aggregations
+reduced.  The port runs that scheme where it has it — the
+edge-partitioned GCN (``gcn.apply(..., mesh=)``, variant ``opt2``) — and
+traces the single-device step at the global size elsewhere, with a
+warning in the cell.
 """
 from __future__ import annotations
 
 from typing import Callable
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import device_put
 from repro_torch.graphs.sampling import sample_blocks
-from repro_torch.models.gnn.common import segment_sum
+from repro_torch.models.gnn.common import meta_from_layout, segment_sum
 from repro_torch.models.recsys.embedding import as_u32, u32_mul
 from repro_torch.optim import adamw, constant
 
-from .base import _A9, optimizer_step
+from .base import DryRunSpec, dp_axes, named, optimizer_step, pad_to, rep, sds
 
 __all__ = ["GNN_SHAPES", "build_gnn_dryrun", "block_graph_from_frontiers"]
 
@@ -99,16 +109,20 @@ def _ce_loss(logits, labels):
     return -torch.sum(ll * valid) / torch.clamp_min(torch.sum(valid), 1.0)
 
 
-def _full_step(model_mod, make_cfg: Callable, shape_name: str):
+def _full_step(model_mod, make_cfg: Callable, shape_name: str, cfg=None, mesh=None):
     """The full-graph step ``step(params, opt_state, feat, pos, edge_src,
-    edge_dst, labels)``: cross-entropy over the labelled nodes.  Returns
+    edge_dst, labels)``: cross-entropy over the labelled nodes.  ``cfg``
+    replaces the shape's config; with ``mesh`` the edge lists are
+    :class:`~repro_torch.distributed.ShardedTensor` blocks of the
+    edge-partitioned scheme (``apply(..., mesh=)``).  Returns
     ``(step, opt_init, cfg)``."""
     shape = GNN_SHAPES[shape_name]
-    cfg = make_cfg(shape["d_feat"], shape["n_classes"])
+    cfg = cfg or make_cfg(shape["d_feat"], shape["n_classes"])
     opt_init, opt_update = adamw(constant(1e-3), weight_decay=0.0)
+    kw = {} if mesh is None else {"mesh": mesh}
 
     def loss(p, feat, pos, edge_src, edge_dst, labels):
-        return _ce_loss(model_mod.apply(p, cfg, feat, pos, edge_src, edge_dst), labels)
+        return _ce_loss(model_mod.apply(p, cfg, feat, pos, edge_src, edge_dst, **kw), labels)
 
     return optimizer_step(loss, opt_update), opt_init, cfg
 
@@ -170,6 +184,130 @@ def _molecule_step(model_mod, make_cfg: Callable, shape_name: str):
     return optimizer_step(loss, opt_update), opt_init, cfg
 
 
-def build_gnn_dryrun(*args, **kwargs):
-    """The reference's dry-run cell builder; raises until ROADMAP A9."""
-    raise NotImplementedError("build_gnn_dryrun " + _A9)
+def _estimate_flops(arch_flops_per_edge, arch_flops_per_node, n_nodes, n_edges, train=True):
+    f = arch_flops_per_edge * n_edges + arch_flops_per_node * n_nodes
+    return f * (3.0 if train else 1.0)
+
+
+def _single(what: str) -> str:
+    return (f"the port has no {what}: the single-device step is traced at the global size, "
+            "per-device terms are its cost over the chips, and no collective is recorded")
+
+
+def build_gnn_dryrun(
+    arch_id: str,
+    model_mod,            # repro_torch.models.gnn.<arch> module
+    make_cfg: Callable,   # (d_in, d_out) -> config dataclass
+    shape_name: str,
+    mesh,
+    flops_per_edge: float,
+    flops_per_node: float,
+    variant: str = "baseline",
+) -> DryRunSpec:
+    """One (GNN × shape × mesh) dry-run cell on a mesh of ``meta`` devices.
+
+    Variants (the reference's, full-graph shapes): ``"opt"`` — aggregation
+    in bf16 (and ``smart_order`` where the arch has it); ``"opt2"`` — opt,
+    and on an arch with ``psum_axes`` (GCN) the edge-partitioned step over
+    the mesh, its per-layer partial aggregates summed in bf16 and recorded;
+    ``"nodeshard"`` — node-sharded features (nodes padded to the mesh).
+    Every cell but GCN's ``opt2`` traces the single-device step and says so
+    in ``warnings``: the reference partitions edges, nodes or the batch by
+    its shardings, which the port has no compiler to apply.
+    """
+    shape = GNN_SHAPES[shape_name]
+    dp = dp_axes(mesh)
+    dpP = dp if len(dp) > 1 else dp[0]
+    all_axes = tuple(mesh.axis_names)
+    node_sharded = variant == "nodeshard" and shape["kind"] == "full"
+
+    def meta_params(cfg):
+        return meta_from_layout(model_mod._layout(cfg))
+
+    if shape["kind"] == "full":
+        n, e, f, c = shape["n_nodes"], shape["n_edges"], shape["d_feat"], shape["n_classes"]
+        e = pad_to(e)  # −1-padded tail; every consumer masks
+        if node_sharded:
+            n = pad_to(n)  # padded nodes carry label −1 (masked in the loss)
+        cfg = make_cfg(f, c)
+        shardmap_psum = variant == "opt2" and hasattr(make_cfg(1, 1), "psum_axes")
+        if variant in ("opt", "opt2"):
+            cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+            if hasattr(cfg, "smart_order"):
+                cfg = dataclasses.replace(cfg, smart_order=True)
+        src, dst = sds((e,), torch.int32), sds((e,), torch.int32)
+        edge_sh = named(mesh, all_axes)
+        if shardmap_psum:
+            cfg = dataclasses.replace(cfg, psum_axes=all_axes)
+            step, opt_init, _ = _full_step(model_mod, make_cfg, shape_name, cfg=cfg, mesh=mesh)
+            src, dst = device_put(src, edge_sh), device_put(dst, edge_sh)
+            warnings = ()
+        else:
+            step, opt_init, _ = _full_step(model_mod, make_cfg, shape_name, cfg=cfg)
+            what = "node-sharded path" if node_sharded else "edge-partitioned path for this arch"
+            warnings = (_single(what),)
+        params = meta_params(cfg)
+        args = (params, opt_init(params), sds((n, f)), sds((n, 3)), src, dst,
+                sds((n,), torch.int32))
+        node_sh = named(mesh, all_axes, None) if node_sharded else rep(mesh)
+        label_sh = named(mesh, all_axes) if node_sharded else rep(mesh)
+        return DryRunSpec(
+            step_fn=step,
+            args=args,
+            in_shardings=(rep(mesh), rep(mesh), node_sh, node_sh, edge_sh, edge_sh, label_sh),
+            donate_argnums=(0, 1),
+            description=f"{arch_id} full-graph N={n} E={e} ({variant})",
+            model_flops=_estimate_flops(flops_per_edge, flops_per_node, n, e),
+            n_params=0,
+            tokens_per_step=n,
+            compute_dtype=cfg.dtype,
+            sharded=shardmap_psum,
+            warnings=warnings,
+        )
+
+    if shape["kind"] == "minibatch":
+        n, e, f = shape["n_nodes"], shape["n_edges"], shape["d_feat"]
+        b, fanout = shape["batch_nodes"], shape["fanout"]
+        step, opt_init, cfg = _minibatch_step(model_mod, make_cfg, shape_name)
+        params = meta_params(cfg)
+        args = (params, opt_init(params), torch.Generator(), sds((n + 1,), torch.int32),
+                sds((e,), torch.int32), sds((n, f)), sds((b,), torch.int32),
+                sds((b,), torch.int32))
+        in_sh = (rep(mesh), rep(mesh), None, rep(mesh), rep(mesh), rep(mesh),
+                 named(mesh, dpP), named(mesh, dpP))
+        sampled_edges = b * (fanout[0] + fanout[0] * fanout[1]) * 2
+        sampled_nodes = b * (1 + fanout[0] + fanout[0] * fanout[1])
+        return DryRunSpec(
+            step_fn=step,
+            args=args,
+            in_shardings=in_sh,
+            donate_argnums=(0, 1),
+            description=f"{arch_id} minibatch B={b} fanout={fanout}",
+            model_flops=_estimate_flops(flops_per_edge, flops_per_node, sampled_nodes,
+                                        sampled_edges),
+            n_params=0,
+            tokens_per_step=b,
+            compute_dtype=cfg.dtype,
+            warnings=(_single("seed-sharded sampled step"),),
+        )
+
+    # batched small graphs (molecule): regression readout
+    nb, ne, batch, f = shape["n_nodes"], shape["n_edges"], shape["batch"], shape["d_feat"]
+    step, opt_init, cfg = _molecule_step(model_mod, make_cfg, shape_name)
+    params = meta_params(cfg)
+    args = (params, opt_init(params), sds((batch, nb, f)), sds((batch, nb, 3)),
+            sds((batch, ne), torch.int32), sds((batch, ne), torch.int32), sds((batch,)))
+    in_sh = (rep(mesh), rep(mesh), named(mesh, dpP, None, None), named(mesh, dpP, None, None),
+             named(mesh, dpP, None), named(mesh, dpP, None), named(mesh, dpP))
+    return DryRunSpec(
+        step_fn=step,
+        args=args,
+        in_shardings=in_sh,
+        donate_argnums=(0, 1),
+        description=f"{arch_id} molecule batch={batch}",
+        model_flops=_estimate_flops(flops_per_edge, flops_per_node, batch * nb, batch * ne),
+        n_params=0,
+        tokens_per_step=batch,
+        compute_dtype=cfg.dtype,
+        warnings=(_single("batch-sharded molecule step"),),
+    )

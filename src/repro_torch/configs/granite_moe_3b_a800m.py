@@ -1,11 +1,12 @@
 """granite-moe-3b-a800m [hf:ibm-granite]: 32L, d=1536, 24H (kv=8), MoE 40e top-8."""
 from repro_torch.models.transformer import TransformerConfig
 
-from .lm_common import LM_SHAPES, lm_smoke_config
+from .lm_common import LM_SHAPES, build_lm_dryrun, lm_smoke_config
 
 ARCH_ID = "granite-moe-3b-a800m"
 FAMILY = "lm"
 SHAPES = tuple(LM_SHAPES)
+MICRO_TARGET = 4
 
 
 def full_config() -> TransformerConfig:
@@ -24,3 +25,7 @@ def full_config() -> TransformerConfig:
 
 def smoke_config() -> TransformerConfig:
     return lm_smoke_config(full_config())
+
+
+def build_dryrun(shape: str, mesh, variant: str = "baseline"):
+    return build_lm_dryrun(full_config(), shape, mesh, MICRO_TARGET, variant=variant)

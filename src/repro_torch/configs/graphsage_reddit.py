@@ -20,8 +20,11 @@ def smoke_config() -> graphsage.SAGEConfig:
 
 
 def build_dryrun(shape: str, mesh, variant: str = "baseline"):
-    """The reference's dry-run cell; raises until ROADMAP A9."""
-    return build_gnn_dryrun(ARCH_ID, shape, mesh, variant=variant)
+    return build_gnn_dryrun(
+        ARCH_ID, graphsage, make_cfg, shape, mesh, variant=variant,
+        flops_per_edge=2.0 * 128,
+        flops_per_node=4.0 * GNN_SHAPES.get(shape, {}).get("d_feat", 64) * 128,
+    )
 
 
 MODEL = graphsage

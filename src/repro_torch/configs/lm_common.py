@@ -3,8 +3,8 @@
 The shape table, the reduced smoke config, the LM sharding rules of a mesh
 (:func:`_rules_for`, :func:`_param_specs`, :func:`_opt_state_specs`) and
 the train step (:func:`make_lm_train_step`), on one device or sharded over
-a :class:`~repro_torch.distributed.Mesh`.  The dry-run builder
-(``build_lm_dryrun``) waits for ROADMAP A9.
+a :class:`~repro_torch.distributed.Mesh`, and the dry-run cells
+(:func:`build_lm_dryrun`).
 """
 from __future__ import annotations
 
@@ -22,15 +22,18 @@ from repro_torch.distributed.sharding import (
     make_param_shardings,
     moe_rules_patch,
     sharded_zeros_like,
+    spec_for,
 )
 from repro_torch.models import transformer as tfm
 from repro_torch.models.transformer import TransformerConfig
 from repro_torch.optim import OptState, adamw, apply_updates, cosine_with_warmup
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 
-from .base import dp_axes
+from repro_torch.obs.cost import record_collective, repeated, stand_in
 
-__all__ = ["LM_SHAPES", "lm_smoke_config", "make_lm_train_step"]
+from .base import DryRunSpec, dp_axes, named, sds
+
+__all__ = ["LM_SHAPES", "build_lm_dryrun", "lm_smoke_config", "make_lm_train_step"]
 
 TP_AXIS = "model"  # the tensor-parallel mesh axis; every other axis is data
 
@@ -198,6 +201,9 @@ def make_lm_train_step(cfg: TransformerConfig, accum: int, grad_specs=None, lr=N
         mesh = tree_leaves(params)[0].mesh
         lead, coords = mesh.lead, _replicas(mesh)
         n_rep = len(coords)
+        # on a mesh of meta devices (the dry run) every replica's rows and
+        # every block of a tensor have one shape: one stands for the rest
+        one = lead.type == "meta"
         specs = grad_specs if grad_specs is not None else tree_map(lambda p: p.spec, params)
         grads = tree_map(lambda p, s: sharded_zeros_like(p, sharding=NamedSharding(mesh, s)),
                          params, specs)
@@ -205,7 +211,7 @@ def make_lm_train_step(cfg: TransformerConfig, accum: int, grad_specs=None, lr=N
                 for k, v in batch.items()}
         weights = _token_weights(rows, accum)
         loss = torch.zeros((), dtype=torch.float32, device=lead)
-        for r, c in enumerate(coords):
+        for r, c in stand_in(enumerate(coords), one):
             dev = mesh.devices[c]
             local = tfm.params_from_tree(tree_map(lambda p: p.gather(dev), params), cfg)
             acc = None
@@ -221,16 +227,29 @@ def make_lm_train_step(cfg: TransformerConfig, accum: int, grad_specs=None, lr=N
             tree_map(lambda gs, a: gs.add_slices_(a), grads, acc)
             del local, acc
         loss /= accum
+        # each replica's f32 gradients went to the blocks' owners: a
+        # reduce-scatter (an all-reduce where a tensor is not sharded)
+        for g in tree_leaves(grads):
+            record_collective("reduce-scatter" if g.sharded_axes else "all-reduce",
+                              g.shape.numel() * 4, mesh.axis_names)
         grads = tree_map(lambda g, p: _relaid(g, p.sharding, accum), grads, params)
-        gnorm = torch.sqrt(sum(torch.sum(blk.to(torch.float32) ** 2).to(lead)
-                               for g in tree_leaves(grads) for _, blk in g.unique_blocks()))
-        blocks = lambda tree: tree_map(lambda x: list(x.blocks.flat), tree)  # noqa: E731
+        squares = []
+        for g in tree_leaves(grads):
+            for _, blk in stand_in(g.unique_blocks(), one):
+                squares.append(torch.sum(blk.to(torch.float32) ** 2).to(lead))
+        gnorm = torch.sqrt(sum(squares))
+        # AdamW block by block: every block of every tensor, or on meta the
+        # first of each, standing for the mesh's blocks
+        cut = (lambda x: [x.blocks.flat[0]]) if one else (lambda x: list(x.blocks.flat))
+        blocks = lambda tree: tree_map(cut, tree)  # noqa: E731
         step = opt_state.step
-        updates, new_state, gnorm = opt_update(
-            blocks(grads), OptState(step.gather(), blocks(opt_state.mu), blocks(opt_state.nu)),
-            blocks(params), gnorm=gnorm)
-        del grads
-        apply_updates(blocks(params), updates)
+        with repeated(mesh.size if one else 1):
+            updates, new_state, gnorm = opt_update(
+                blocks(grads), OptState(step.gather(), blocks(opt_state.mu),
+                                        blocks(opt_state.nu)),
+                blocks(params), gnorm=gnorm)
+            del grads
+            apply_updates(blocks(params), updates)
         return params, OptState(device_put(new_state.step, step.sharding), opt_state.mu,
                                 opt_state.nu), {"loss": loss, "gnorm": gnorm}
 
@@ -247,7 +266,7 @@ def make_lm_train_step(cfg: TransformerConfig, accum: int, grad_specs=None, lr=N
 
 def _relaid(g: ShardedTensor, sharding: NamedSharding, accum: int) -> ShardedTensor:
     """The summed gradient divided by ``accum``, in its parameter's layout."""
-    for c in g.coords():
+    for c in stand_in(g.coords(), g.on_meta):
         g.blocks[c].div_(accum)
     return g if g.spec == sharding.spec else device_put(g, sharding)
 
@@ -255,10 +274,134 @@ def _relaid(g: ShardedTensor, sharding: NamedSharding, accum: int) -> ShardedTen
 def _token_weights(rows: dict, accum: int) -> list[list[float]]:
     """``weights[r][i]``: replica ``r``'s share of microbatch ``i``'s loss —
     its label tokens (or mask sum) over the microbatch's, so that the
-    weighted sum of the replicas' mean losses is the microbatch's mean."""
-    if "mask" in rows:
+    weighted sum of the replicas' mean losses is the microbatch's mean.  A
+    mask on ``meta`` (the dry run) holds no values: its rows are weighted
+    by their size."""
+    if "mask" in rows and rows["mask"][0].device.type != "meta":
         counts = [[float(m[i].sum()) for i in range(accum)] for m in rows["mask"]]
     else:
         counts = [[float(x[i].numel()) for i in range(accum)] for x in rows["labels"]]
     totals = [max(sum(c[i] for c in counts), 1.0) for i in range(accum)]
     return [[c[i] / totals[i] for i in range(accum)] for c in counts]
+
+
+def _accum_for(cfg, mesh, shape, micro_target: int):
+    dp = 1
+    for a in dp_axes(mesh):
+        dp *= mesh.shape[a]
+    per_dev = shape["batch"] // dp
+    if per_dev == 0:
+        raise ValueError(f"batch {shape['batch']} smaller than dp={dp}")
+    accum = max(1, per_dev // micro_target)
+    while shape["batch"] % (dp * accum):
+        accum -= 1
+    return accum, shape["batch"] // accum
+
+
+_SINGLE = ("the port has no sharded {what} path: the single-device step is traced at the "
+           "global batch, per-device terms are its cost over the chips, and no collective "
+           "is recorded")
+
+
+def build_lm_dryrun(cfg: TransformerConfig, shape_name: str, mesh, micro_target: int = 2,
+                    variant: str = "baseline") -> DryRunSpec:
+    """One (LM × shape × mesh) dry-run cell on a mesh of ``meta`` devices.
+
+    ``train_4k`` runs the sharded train step (:func:`make_lm_train_step`
+    with ``grad_specs``) over the mesh: one data replica and one block of
+    each tensor are traced for all of them (one shape each), and every
+    gather and gradient sum records its collective.  ``prefill_32k``,
+    ``decode_32k`` and ``long_500k`` trace the single-device step at the
+    global batch (``collectives`` null, a warning says so); a decode step
+    writes the cache's last slot.
+
+    Variants (the reference's): ``"opt"`` — one-hot CE, TP-only weights
+    when master and moments fit one TP shard, and the int8 KV cache in
+    decode; ``"opt2"`` — opt with ``dots`` remat.
+    """
+    shape = LM_SHAPES[shape_name]
+    tp_only = variant in ("opt", "opt2") and _use_tp_only(cfg, mesh)
+    if variant in ("opt", "opt2"):
+        cfg = dataclasses.replace(cfg, onehot_ce=True)
+    if variant == "opt2":
+        cfg = dataclasses.replace(cfg, remat_policy="dots")
+    dp = dp_axes(mesh)
+    dpP = dp if len(dp) > 1 else dp[0]
+    params_meta, param_sh, rules = _param_specs(cfg, mesh, tp_only=tp_only)
+    b, s = shape["batch"], shape["seq"]
+    common = dict(n_params=cfg.n_params(), compute_dtype=cfg.dtype)
+
+    if shape["kind"] == "train":
+        accum, micro_total = _accum_for(cfg, mesh, shape, micro_target)
+        step, opt_init = make_lm_train_step(cfg, accum, grad_specs=spec_for(rules, params_meta))
+        params = device_put(params_meta, param_sh)
+        batch = {k: sds((accum, micro_total, s), torch.int32) for k in ("tokens", "labels")}
+        n_rep = len(_replicas(mesh))
+        tokens = b * s
+        return DryRunSpec(
+            step_fn=step,
+            args=(params, opt_init(params), batch),
+            in_shardings=(param_sh, _opt_state_specs(param_sh),
+                          {k: named(mesh, None, dpP, None) for k in batch}),
+            donate_argnums=(0, 1),
+            description=f"{cfg.name} train accum={accum}",
+            model_flops=6.0 * cfg.n_active_params() * tokens,
+            tokens_per_step=tokens,
+            sharded=True,
+            warnings=(f"one data replica of {n_rep} traced and counted {n_rep} times, and one "
+                      f"block of each tensor for the mesh's {mesh.size}",),
+            **common,
+        )
+
+    if shape["kind"] == "prefill":
+        def prefill_step(params, tokens):
+            return tfm.prefill(tfm.params_from_tree(params, cfg), tokens, cfg)
+
+        cache_sh = NamedSharding(mesh, P(None, dpP, None, "model", None))
+        tokens = b * s
+        return DryRunSpec(
+            step_fn=prefill_step,
+            args=(params_meta, sds((b, s), torch.int32)),
+            in_shardings=(param_sh, named(mesh, dpP, None)),
+            out_shardings=(named(mesh, dpP, "model"), (cache_sh, cache_sh)),
+            description=f"{cfg.name} prefill",
+            model_flops=2.0 * cfg.n_active_params() * tokens
+            + 4.0 * b * cfg.n_heads * cfg.head_dim * s * s / 2,
+            tokens_per_step=tokens,
+            warnings=(_SINGLE.format(what="prefill"),),
+            **common,
+        )
+
+    # decode kinds
+    long = shape["kind"] == "decode_long"
+    kv_quant = variant in ("opt", "opt2")
+    if kv_quant:
+        cfg = dataclasses.replace(cfg, kv_quant=True)
+    seq_spec = (*dp, "model") if long else "model"
+    batch_axis = None if long else dpP
+    cache_sh = NamedSharding(mesh, P(None, batch_axis, None, seq_spec, None))
+    scale_sh = NamedSharding(mesh, P(None, batch_axis, None, seq_spec))
+    kv_shape = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.head_dim)
+    if kv_quant:
+        cache = (sds(kv_shape, torch.int8), sds(kv_shape[:-1], torch.float32),
+                 sds(kv_shape, torch.int8), sds(kv_shape[:-1], torch.float32))
+        cache_shardings = (cache_sh, scale_sh, cache_sh, scale_sh)
+    else:
+        cache = (sds(kv_shape, cfg.dtype), sds(kv_shape, cfg.dtype))
+        cache_shardings = (cache_sh, cache_sh)
+
+    def decode(params, token, cache):
+        return tfm.decode_step(tfm.params_from_tree(params, cfg), token, s - 1, cache, cfg)
+
+    return DryRunSpec(
+        step_fn=decode,
+        args=(params_meta, sds((b,), torch.int32), cache),
+        in_shardings=(param_sh, named(mesh, batch_axis), cache_shardings),
+        out_shardings=(None, cache_shardings),
+        donate_argnums=(2,),
+        description=f"{cfg.name} decode S={s} B={b} kv_quant={kv_quant}",
+        model_flops=2.0 * cfg.n_active_params() * b + 4.0 * b * cfg.n_heads * cfg.head_dim * s,
+        tokens_per_step=b,
+        warnings=(_SINGLE.format(what="decode"),),
+        **common,
+    )

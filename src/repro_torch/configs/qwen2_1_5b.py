@@ -1,11 +1,12 @@
 """qwen2-1.5b [arXiv:2407.10671]: 28L, d=1536, 12H (kv=2), QKV bias, vocab 151936."""
 from repro_torch.models.transformer import TransformerConfig
 
-from .lm_common import LM_SHAPES, lm_smoke_config
+from .lm_common import LM_SHAPES, build_lm_dryrun, lm_smoke_config
 
 ARCH_ID = "qwen2-1.5b"
 FAMILY = "lm"
 SHAPES = tuple(LM_SHAPES)
+MICRO_TARGET = 4
 
 
 def full_config() -> TransformerConfig:
@@ -24,3 +25,7 @@ def full_config() -> TransformerConfig:
 
 def smoke_config() -> TransformerConfig:
     return lm_smoke_config(full_config())
+
+
+def build_dryrun(shape: str, mesh, variant: str = "baseline"):
+    return build_lm_dryrun(full_config(), shape, mesh, MICRO_TARGET, variant=variant)

@@ -22,8 +22,12 @@ def smoke_config() -> schnet.SchNetConfig:
 
 
 def build_dryrun(shape: str, mesh, variant: str = "baseline"):
-    """The reference's dry-run cell; raises until ROADMAP A9."""
-    return build_gnn_dryrun(ARCH_ID, shape, mesh, variant=variant)
+    # filter MLP dominates: ≈ 2·(300·64 + 64·64) FLOPs per edge per interaction
+    return build_gnn_dryrun(
+        ARCH_ID, schnet, make_cfg, shape, mesh, variant=variant,
+        flops_per_edge=3 * 2.0 * (300 * 64 + 64 * 64),
+        flops_per_node=3 * 4.0 * 64 * 64,
+    )
 
 
 MODEL = schnet

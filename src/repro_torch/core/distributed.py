@@ -36,6 +36,7 @@ from repro_torch.distributed.compression import (
     ensure_fits_int32,
 )
 from repro_torch.distributed.mesh import Mesh
+from repro_torch.obs.cost import record_collective
 
 from .count import _expand_close_body, segmented_int32_sum
 from .preprocess import OrientedCSR, preprocess
@@ -285,8 +286,12 @@ def striped_workload_fn(
                 bases.append(base)
             part = part.to(lead)
             acc = part if acc is None else acc.add_(part)
+        axes = mesh.axis_names
         if kind == "count":
-            return torch.stack(partials)
+            out = torch.stack(partials)
+            record_collective("all-gather", out[0].numel() * out.element_size(), axes)
+            return out
+        record_collective("all-reduce", acc.numel() * acc.element_size(), axes)
         if kind == "per_node":
             return acc
         base_all = compressed_all_gather_int32(bases, mesh, narrow=narrow_wire)
@@ -381,6 +386,7 @@ def make_distributed_panel_count_fn(
                 dev, [_on(a[s], dev) for a in srcs], [_on(a[s], dev) for a in dsts],
                 _on(row, dev), _on(col, dev), _on(deg, dev),
             ).to(lead))
+        record_collective("all-gather", out[0].element_size(), mesh.axis_names)
         return torch.stack(out)
 
     return fn, widths

@@ -29,6 +29,7 @@ from .compression import (
     compressed_all_gather_int32,
 )
 from .mesh import Mesh, mesh_device
+from repro_torch.obs.cost import record_collective
 from .straggler import (
     StragglerMonitor,
     StripeSkewReport,
@@ -57,6 +58,7 @@ __all__ = [
     "INT32_MAX",
     "Mesh",
     "mesh_device",
+    "record_collective",
     "StragglerMonitor",
     "StripeSkewReport",
     "skew_disagreement_note",

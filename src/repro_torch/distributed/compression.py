@@ -31,6 +31,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.obs.cost import record_collective
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 
 __all__ = [
@@ -109,6 +110,9 @@ def compressed_psum(parts: Sequence[torch.Tensor], mesh, axis_name) -> list[torc
     ``parts[s]`` is shard ``s``'s tensor, on its device, all of one shape.
     """
     _check_shards(parts, mesh)
+    names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    record_collective("all-reduce", 4, names)  # the shared scale (the pmax)
+    record_collective("all-reduce", parts[0].numel(), names)  # the int8 payload
     out: list = [None] * len(parts)
     for group in _groups(mesh, axis_name):
         xs = [parts[s].to(torch.float32) for s in group]
@@ -226,6 +230,8 @@ def compressed_all_gather_int32(
     results, wider wire).
     """
     lead = mesh.lead
+    n = parts[0].numel() if len(parts) else 0
+    record_collective("all-gather", n * (2 if narrow else 4), mesh.axis_names)
     if not narrow:
         return torch.stack([p.to(torch.int32).to(lead) for p in parts])
     wires = []

@@ -27,6 +27,13 @@ fields as ``.name`` (as ``jax.tree_util`` renders ``GetAttrKey``).
 
 Optimizer moments reuse the parameters' specs (ZeRO optimizer-state
 sharding; :func:`repro_torch.configs.lm_common._opt_state_specs`).
+
+**Collectives.**  :meth:`ShardedTensor.gather` is an all-gather of the
+blocks and tells the cost walker what it moves
+(:func:`repro_torch.obs.cost.record_collective`).  On a mesh of
+``meta`` devices (the dry run's) every block of a tensor has one shape, so
+one block's work stands for the others' (:func:`repro_torch.obs.cost.stand_in`)
+and :func:`device_put` copies nothing.
 """
 from __future__ import annotations
 
@@ -35,6 +42,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.obs.cost import record_collective, stand_in
 
 from .mesh import Mesh
 
@@ -151,7 +160,8 @@ class ShardedTensor:
     ``blocks`` is an object array of the mesh's shape; ``blocks[coord]``
     is the part :meth:`NamedSharding.slices` names, on ``mesh.devices[coord]``.
     Blocks never share storage, so an in-place update of every block (an
-    optimizer step) updates each replica once.
+    optimizer step) updates each replica once — except on a ``meta`` mesh,
+    whose coordinates all hold one block with no values.
     """
 
     def __init__(self, blocks: np.ndarray, shape, sharding: NamedSharding):
@@ -173,6 +183,22 @@ class ShardedTensor:
     def coords(self):
         return np.ndindex(*self.blocks.shape)
 
+    @property
+    def on_meta(self) -> bool:
+        """True on a mesh of ``meta`` devices: one block's work stands for all."""
+        return self.mesh.lead.type == "meta"
+
+    @property
+    def sharded_axes(self) -> tuple[str, ...]:
+        """The mesh axes the spec splits a dimension over."""
+        return tuple(a for e in self.spec for a in _axes(e))
+
+    @property
+    def block_nbytes(self) -> int:
+        """The bytes of one block."""
+        return int(np.prod(self.sharding.block_shape(self.shape), dtype=np.int64)) * \
+            self.blocks.flat[0].element_size()
+
     def unique_blocks(self) -> list:
         """``(slices, block)``, one per distinct part (a replicated part once)."""
         seen = {}
@@ -185,13 +211,16 @@ class ShardedTensor:
     def gather(self, device=None) -> torch.Tensor:
         """The whole tensor on ``device`` (the mesh's lead by default)."""
         out = torch.empty(self.shape, dtype=self.dtype, device=device or self.mesh.lead)
-        for sl, blk in self.unique_blocks():
+        blocks = self.unique_blocks()
+        if len(blocks) > 1:
+            record_collective("all-gather", self.block_nbytes, self.sharded_axes)
+        for sl, blk in stand_in(blocks, self.on_meta):
             out[sl].copy_(blk)
         return out
 
     def add_slices_(self, full: torch.Tensor, alpha: float = 1.0) -> None:
         """Add the matching part of the whole tensor ``full`` into every block."""
-        for c in self.coords():
+        for c in stand_in(self.coords(), self.on_meta):
             blk = self.blocks[c]
             blk.add_(full[self.sharding.slices(c, self.shape)].to(blk.device), alpha=alpha)
 
@@ -215,10 +244,22 @@ def _place(x, sharding: NamedSharding) -> ShardedTensor:
     x = x.detach()  # blocks hold values: a parameter's copy tracks no graph
     bshape = sharding.block_shape(x.shape)
     blocks = np.empty(sharding.mesh.devices.shape, dtype=object)
+    if sharding.mesh.lead.type == "meta":
+        _meta_blocks(blocks, bshape, x.dtype)
+        return ShardedTensor(blocks, x.shape, sharding)
     for c in np.ndindex(*blocks.shape):
         blk = torch.empty(bshape, dtype=x.dtype, device=sharding.mesh.devices[c])
         blocks[c] = blk.copy_(x[sharding.slices(c, x.shape)])
     return ShardedTensor(blocks, x.shape, sharding)
+
+
+def _meta_blocks(blocks: np.ndarray, shape, dtype) -> None:
+    """Fill ``blocks`` with one ``meta`` block, held by every coordinate of
+    a ``meta`` mesh: it has no values, and one block's work stands for
+    every block's."""
+    blk = torch.empty(shape, dtype=dtype, device="meta")
+    for c in np.ndindex(*blocks.shape):
+        blocks[c] = blk
 
 
 def _walk(tree, fn, path=(), depth=0, rest=()):
@@ -256,6 +297,9 @@ def sharded_zeros_like(x: ShardedTensor, sharding: NamedSharding | None = None) 
     sharding = sharding or x.sharding
     bshape = sharding.block_shape(x.shape)
     blocks = np.empty(sharding.mesh.devices.shape, dtype=object)
+    if sharding.mesh.lead.type == "meta":
+        _meta_blocks(blocks, bshape, torch.float32)
+        return ShardedTensor(blocks, x.shape, sharding)
     for c in np.ndindex(*blocks.shape):
         blocks[c] = torch.zeros(bshape, dtype=torch.float32, device=sharding.mesh.devices[c])
     return ShardedTensor(blocks, x.shape, sharding)

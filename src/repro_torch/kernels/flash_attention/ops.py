@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.obs.cost import region
+
 from .flash_attention import flash_attention_cuda
 
 __all__ = ["attention", "KernelAttention"]
@@ -47,6 +49,7 @@ class KernelAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+@region("attention")
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
               sm_scale: float | None = None, backend: str = "auto"):
     if backend == "auto":

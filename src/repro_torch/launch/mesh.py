@@ -1,4 +1,4 @@
-"""Mesh construction for the port's entry points.
+"""Mesh construction for the port's entry points and the dry run.
 
 The PyTorch counterpart of ``repro.launch.mesh``.  Functions, never
 module-level constants, so importing this module never queries a device.
@@ -19,12 +19,20 @@ DATA_AXES = ("pod", "data")   # gradient / batch parallelism axes
 ALL_AXES = ("pod", "data", "model")
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 256- and 512-chip TPU pods: held for ROADMAP A9."""
-    raise NotImplementedError(
-        "make_production_mesh is not yet ported to repro_torch (ROADMAP A9: "
-        "the dry run's TPU pods); use the JAX package repro for it"
-    )
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The dry run's production mesh of H100s, as ``meta`` devices.
+
+    ``(32, 8)`` ``("data", "model")``: 256 GPUs, one DGX SuperPOD scalable
+    unit of 32 DGX H100 nodes, ``model`` one node's 8 GPUs on NVLink;
+    ``multi_pod``: two such units, ``(2, 32, 8)`` ``("pod", "data",
+    "model")``, 512 GPUs.  The chip counts are the reference's; its
+    16-wide ``model`` axis would straddle two 8-GPU NVLink domains, so the
+    port's ``model`` axis is 8 wide and ``data`` twice as long.  Every
+    device is ``meta``: the dry run traces shapes and allocates nothing.
+    """
+    shape = (2, 32, 8) if multi_pod else (32, 8)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(np.full(shape, "meta", dtype=object), axes)
 
 
 def _visible(device=None) -> list[torch.device]:

@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.compression import ensure_fits_int32, ieee_div
+from repro_torch.distributed.compression import INT32_MAX, ieee_div
+from repro_torch.obs.cost import region
 
 __all__ = [
     "flash_attention_torch",
@@ -55,6 +56,7 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+@region("attention")
 def flash_attention_torch(
     q: torch.Tensor,  # (B, Hq, Sq, D)
     k: torch.Tensor,  # (B, Hkv, Skv, D)
@@ -123,12 +125,17 @@ def _int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``127² · n < 2²⁴`` (the score dot, n = head dim ≤ 1,040), float64
     otherwise (the value dot, n = cache length: 2,080 at qwen2's serving
     shape), exact below 2⁵³.  The order of the sums then cannot change the
-    result.
+    result.  Past int32's bound (a cache longer than 133,143 tokens, as
+    ``long_500k``'s) the sums come back in int64, where the reference's
+    int32 accumulation could wrap.
     """
     n = a.shape[-1]
-    bound = ensure_fits_int32(127 * 127 * n, "an int8 dot's sum")
+    bound = 127 * 127 * n
+    if bound >= 1 << 53:
+        raise OverflowError(f"an int8 dot over {n} terms is not exact in float64")
     ft = torch.float32 if bound < 1 << 24 else torch.float64
-    return torch.matmul(a.to(ft), b.to(ft)).to(torch.int32)
+    return torch.matmul(a.to(ft), b.to(ft)).to(
+        torch.int32 if bound <= INT32_MAX else torch.int64)
 
 
 def _valid_keys(cache_len, s: int, device) -> torch.Tensor:

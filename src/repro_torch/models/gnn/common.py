@@ -153,6 +153,13 @@ def init_from_layout(layout, generator: torch.Generator, param_dtype=torch.float
     return _map_layout(make, layout)
 
 
+def meta_from_layout(layout, param_dtype=torch.float32) -> dict:
+    """The tree of a layout as ``meta`` tensors (shapes without memory): the
+    port's ``jax.eval_shape`` of an ``init_params``, for the dry run."""
+    return _map_layout(lambda spec, _, __: torch.empty(spec[1], dtype=param_dtype,
+                                                       device="meta"), layout)
+
+
 def params_from_layout(tree, layout, device) -> dict:
     """The reference's tree as numpy arrays (``jax.tree.map(np.asarray,
     params)``) as f32 tensors on ``device``; a missing key, a list of

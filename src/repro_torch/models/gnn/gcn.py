@@ -10,7 +10,7 @@ edge lists as :class:`~repro_torch.distributed.ShardedTensor` blocks along
 block's degree histogram and partial aggregate on the block's device, then
 sums them onto the features' device (the mesh's lead) in the compute dtype
 — bf16 on the wire when ``dtype`` is bf16, as the reference's explicit
-``psum``.  Features and weights stay on the lead device: one copy is the
+``psum`` — and tells the cost walker each sum's bytes.  Features and weights stay on the lead device: one copy is the
 replicated copy of a single controller.
 """
 from __future__ import annotations
@@ -21,6 +21,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.distributed.sharding import ShardedTensor
+from repro_torch.obs.cost import record_collective
 
 from .common import (
     degrees_from_edges,
@@ -114,6 +115,8 @@ def apply(
     for _, dst, mask in blocks:
         part = degrees_from_edges(dst, n, mask).to(lead)
         deg = part if deg is None else deg + part
+    if mesh is not None:
+        record_collective("all-reduce", deg.numel() * deg.element_size(), cfg.psum_axes)
     deg = deg + 1.0
     inv_sqrt = torch.rsqrt(deg)
     coefs = []
@@ -131,6 +134,8 @@ def apply(
             msg = gather_src(h.to(src.device), src) * coef.to(x.dtype)
             part = scatter_sum(msg, dst, n, mask).to(lead)   # compute dtype on the wire
             scat = part if scat is None else scat + part
+        if mesh is not None:
+            record_collective("all-reduce", scat.numel() * scat.element_size(), cfg.psum_axes)
         agg = scat + h * (inv_sqrt ** 2)[:, None].to(x.dtype)
         if not transform_first:
             agg = agg @ w

@@ -48,6 +48,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from repro_torch._device import resolve_device
 from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.obs.cost import region
 
 from .attention import (
     apply_rope,
@@ -411,20 +412,33 @@ def _moe(h: torch.Tensor, p: dict, cfg: TransformerConfig) -> torch.Tensor:
     order = torch.argsort(flat_e, stable=True)
     token_of = order // k                                              # source token per row
     xs = h[token_of]                                                   # (T·k, d) by expert
-    sizes = torch.bincount(flat_e, minlength=e).tolist()
+    if h.device.type == "meta":
+        # the dry run: no ids to count, so the T·k rows split evenly over
+        # the experts (the FLOPs of any split: 2·T·k·d·f a product)
+        sizes = [t * k // e + (i < t * k % e) for i in range(e)]
+    else:
+        sizes = torch.bincount(flat_e, minlength=e).tolist()
+    out = _experts(xs, sizes, p, h.dtype)
+    w_sorted = top_w.reshape(-1)[order].to(out.dtype)
+    out = out * w_sorted[:, None]
+    return torch.zeros((t, d), dtype=out.dtype, device=h.device).index_add(0, token_of, out)
+
+
+@region("ragged_dot")
+def _experts(xs: torch.Tensor, sizes: list, p: dict, dtype) -> torch.Tensor:
+    """Each expert's SwiGLU over its contiguous rows of ``xs``: the
+    reference's three ``ragged_dot`` products (the cost walker counts them
+    under that name)."""
     outs, start = [], 0
     for i, n in enumerate(sizes):
         if n:
             rows = xs[start:start + n]
             g = rows @ p["w_gate"][i]
             u = rows @ p["w_up"][i]
-            act = nn.functional.silu(g.to(torch.float32)).to(h.dtype) * u
+            act = nn.functional.silu(g.to(torch.float32)).to(dtype) * u
             outs.append(act @ p["w_down"][i])
         start += n
-    out = torch.cat(outs) if outs else xs.new_zeros((0, d))
-    w_sorted = top_w.reshape(-1)[order].to(out.dtype)
-    out = out * w_sorted[:, None]
-    return torch.zeros((t, d), dtype=out.dtype, device=h.device).index_add(0, token_of, out)
+    return torch.cat(outs) if outs else xs.new_zeros((0, xs.shape[1]))
 
 
 def _mlp(hmid: torch.Tensor, p: dict, cfg: TransformerConfig) -> torch.Tensor:

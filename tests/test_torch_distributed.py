@@ -211,8 +211,8 @@ def test_exports_match_reference():
     ef = compression.make_error_feedback_state([{"w": p} for p in parts])
     sync, _ = compression.compress_grads([{"w": p} for p in parts], ef, mesh, "data")
     np.testing.assert_allclose(sync[1]["w"].numpy(), 1.0, rtol=1e-2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        launch_mesh.make_production_mesh()
+    prod = launch_mesh.make_production_mesh()
+    assert prod.shape == {"data": 32, "model": 8} and prod.lead == torch.device("meta")
     import repro_torch.core as port_core
     import repro.core as ref_core
 

@@ -27,6 +27,7 @@ from repro.data import graph_node_features  # noqa: E402
 from repro.graphs import erdos_renyi, random_molecule_batch  # noqa: E402
 from repro.graphs import sample_blocks as jsample_blocks  # noqa: E402
 from repro.graphs.formats import edge_array_to_csr  # noqa: E402
+from repro.launch.mesh import make_local_mesh  # noqa: E402
 from repro.models.gnn import common as jcommon  # noqa: E402
 from repro.models.gnn import gcn as jgcn  # noqa: E402
 from repro.optim import adamw as jadamw, constant as jconstant  # noqa: E402
@@ -35,6 +36,7 @@ from repro_torch.configs import gnn_common as gc  # noqa: E402
 from repro_torch.configs.base import value_and_grad  # noqa: E402
 from repro_torch.distributed import Mesh, NamedSharding, P, device_put  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.models.gnn import common, gcn  # noqa: E402
 from repro_torch.optim import adamw, apply_updates, constant  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
@@ -353,8 +355,14 @@ def test_gnn_archs_resolve_and_the_dry_run_waits():
         assert mod.FAMILY == "gnn" and mod.SHAPES == JAX_REGISTRY[arch].SHAPES
         assert dataclasses.asdict(mod.make_cfg(602, 41)).keys() == \
             dataclasses.asdict(JAX_REGISTRY[arch].make_cfg(602, 41)).keys()
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            mod.build_dryrun("full_graph_sm", None)
+        # the dry run is ported: the molecule cell on the production mesh of
+        # H100s has the reference's metadata (which no mesh changes)
+        got = mod.build_dryrun("molecule", make_production_mesh())
+        with make_local_mesh(1, 1) as jmesh:
+            want = JAX_REGISTRY[arch].build_dryrun("molecule", jmesh)
+        assert (got.description, got.model_flops, got.tokens_per_step) == \
+            (want.description, want.model_flops, want.tokens_per_step)
+        assert got.args[2].device.type == "meta" and got.warnings
     assert gc.GNN_SHAPES == jgc.GNN_SHAPES
 
 

@@ -216,8 +216,7 @@ def test_kv_quant_loss_and_other_archs_are_not_ported():
     assert bool((cache[0][:, :, :, 0] != 0).any()) and bool((cache[1][:, :, :, 0] > 0).all())
     assert not bool(cache[0][:, :, :, 1:].any())
     assert get_arch("gcn-cora").FAMILY == "gnn"
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        get_arch("triangles")
+    assert get_arch("triangles").FAMILY == "graph-analytics"
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 

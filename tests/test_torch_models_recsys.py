@@ -23,7 +23,9 @@ from repro.models.recsys import din as jdin  # noqa: E402
 from repro.models.recsys import embedding as jemb  # noqa: E402
 from repro_torch.configs import REGISTRY, get_arch  # noqa: E402
 from repro_torch.configs.base import value_and_grad  # noqa: E402
+from repro_torch.distributed import P  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.models.recsys import (  # noqa: E402
     din, embedding_bag, embedding_lookup, hash_bucket)
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
@@ -214,11 +216,16 @@ def test_din_resolves_and_the_dry_run_waits():
     assert (full.n_items, full.n_cates, full.embed_dim, full.seq_len, full.attn_mlp, full.mlp) \
         == (jfull.n_items, jfull.n_cates, jfull.embed_dim, jfull.seq_len, jfull.attn_mlp,
             jfull.mlp)
-    for call in (lambda: mod.build_dryrun("train_batch", None),
-                 lambda: mod._param_shardings(None, None),
-                 lambda: mod._flops(full, 1, 1, True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            call()
+    # the dry run is ported: the reference's FLOP model and table shardings
+    jmod = JAX_REGISTRY["din"]
+    for batch, seq, train in ((65536, 100, True), (512, 100, False), (1, 7, True)):
+        assert mod._flops(full, batch, seq, train) == jmod._flops(jfull, batch, seq, train)
+    mesh = make_production_mesh()
+    spec = mod.build_dryrun("train_batch", mesh)
+    shardings = mod._param_shardings(mesh, spec.args[0])
+    assert shardings["item_table"].spec == P("model", None) == shardings["cate_table"].spec
+    assert all(s.spec == P() for s in tree_leaves(shardings["mlp"]))
+    assert spec.description == "din train B=65536" and spec.tokens_per_step == 65536
 
 
 def test_train_cli_trains_din_on_the_cpu(monkeypatch, capsys):
