@@ -1,4 +1,4 @@
-"""trilint pass: observability spans over device work must sync.
+"""trilint pass: observability spans over device work must sync or time it.
 
 The port's counterpart of ``repro.check.obs_discipline``.  CUDA launches
 are asynchronous, so a span that wraps a kernel launch but closes without
@@ -6,10 +6,15 @@ a synchronization point records the *enqueue* time (microseconds) instead
 of the device compute time — the trace looks implausibly fast and every
 derived number (stripe skew, overhead tables) is garbage.  The invariant:
 any ``with ...span(...)`` block whose body launches device work must call
-a sync point before the span closes.
+a sync point before the span closes, or take the event route: bracket the
+work in ``Span.device_time(device)``, a CUDA event pair on the device's
+stream that waits for nothing, whose elapsed ``device_ms`` the tracer
+writes into the span (``Tracer.settle``) after the caller's own later
+wait.  The engine's chunk spans take that route, so that tracing does not
+serialise the chunks.
 
 * ``D1-unsynced-span`` — a span context manager whose body calls a
-  device-work entry point but contains no sync call.
+  device-work entry point but contains no sync call and no event pair.
 
 "Device work" is recognized by call-name convention, matching the port's
 launch vocabulary: a last name that starts with ``chunk_`` or
@@ -19,8 +24,9 @@ the launch wrappers (``_stripe_body``, ``striped_workload_fn``,
 ``flash_attention_cuda``, ``run_workload``).  A bare ``_csr`` suffix is no
 mark of device work: ``to_csr``, ``resolve_to_csr`` and
 ``workload_from_csr`` build a CSR on the host.  Sync points are
-``Span.sync`` / ``obs.sync`` (``sync``), ``torch.cuda.synchronize``, and
-the host reads ``.item()`` and ``.cpu()``, which wait for the device.  The
+``Span.sync`` (``sync``), ``torch.cuda.synchronize``, and the host reads
+``.item()`` and ``.cpu()``, which wait for the device; ``device_time``
+marks the event route.  The
 reference's ``pallas_call``/``shard_map`` are not listed: the port never
 calls them.  Spans around pure-host work (parsing, CSR assembly, numpy
 folds) are exempt — host calls return only when done, so the span is
@@ -42,8 +48,9 @@ LAUNCH_WRAPPERS = frozenset(
     {"_stripe_body", "striped_workload_fn", "flash_attention_cuda", "run_workload"}
 )
 
-# Call names that prove the span waited for the device.
-SYNC_NAMES = frozenset({"sync", "synchronize", "item", "cpu"})
+# Call names that prove the span waited for the device, or timed it
+# with an event pair (``device_time``).
+SYNC_NAMES = frozenset({"sync", "synchronize", "item", "cpu", "device_time"})
 
 
 def _is_span_call(node: ast.expr) -> bool:
@@ -82,7 +89,12 @@ def check_obs_discipline(mod: ModuleInfo) -> "list[Finding]":
             continue
 
         device_calls: "list[str]" = []
-        synced = False
+        # the event route: ``with ...span(...) as sp, sp.device_time(device):``
+        synced = any(
+            isinstance(item.context_expr, ast.Call)
+            and _last_name(item.context_expr) == "device_time"
+            for item in node.items
+        )
         for call in walk_calls(ast.Module(body=node.body, type_ignores=[])):
             last = _last_name(call)
             if not last:
@@ -102,7 +114,8 @@ def check_obs_discipline(mod: ModuleInfo) -> "list[Finding]":
                     f"span wraps device work ({launches}) but closes without "
                     "a sync point; CUDA launches are async, so the span records "
                     "enqueue latency, not device time — call `sp.sync(...)` "
-                    "or `torch.cuda.synchronize()` before the span exits",
+                    "or `torch.cuda.synchronize()` before the span exits, or "
+                    "bracket the work in `sp.device_time(device)`",
                 )
             )
     return findings

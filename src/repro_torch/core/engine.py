@@ -182,9 +182,13 @@ class EngineStats:
     the start of every public engine call.  ``peak_wedge_buffer`` is the
     largest buffer a launch materialized; ``wedge_budget`` the requested
     budget.  ``timings`` splits the call's wall clock into
-    ``preprocess`` / ``plan`` / ``execute`` / ``fold`` seconds; launches
-    are asynchronous, so device time bills to ``fold`` unless a tracer
-    syncs each chunk.
+    ``preprocess`` / ``plan`` / ``execute`` / ``fold`` seconds of host
+    clock; launches are asynchronous, so ``preprocess`` and ``execute``
+    end before their device work does, and device time bills to whatever
+    waits next (``fold``, or the next phase).  The host/device split is
+    the phase spans (``engine.preprocess``, ``.resolve``, ``.workload``,
+    ``.plan``, ``.launch``, ``.fold``) read beside a ``torch.profiler``
+    trace of the device.
 
     The stripe fields describe a distributed run (``n_stripes`` is 1
     otherwise): the wedge-load skew of its stripes and the stripe the
@@ -938,20 +942,29 @@ def run_workload(
     plan with its launch stats and phase ``timings``.  Partials stay on
     the device until one fold after the last launch, so launches are not
     serialized by host reads; a distributed backend's partials and the
-    fold lie on its mesh's lead device.  Under an active
-    :mod:`repro_torch.obs` tracer each chunk launch gets a span that syncs
-    before it closes, and §III-E striped chunks get a per-stripe timing
-    probe (:func:`_probe_stripe_times`) whose sums fill the returned
-    plan's ``stripe_times``.  With ``REPRO_CHECK=1`` each chunk's partial
-    goes through :func:`repro_torch.check.runtime.check_partial` before
-    the fold (one read of its min and max per chunk).
+    fold lie on its mesh's lead device.  The three phases are
+    :mod:`repro_torch.obs` spans (``engine.plan``, ``engine.launch``,
+    ``engine.fold``), ranges on the profiler's clock while
+    ``torch.profiler`` records; ``engine.plan`` and ``engine.fold`` have
+    the boundaries of ``timings["plan"]`` and ``["fold"]``.  Under an
+    active tracer each chunk launch also gets a span with the chunk's
+    ``buffer`` (and a panel chunk's ``width`` and ``rows``); on CUDA it
+    brackets the launch in a CUDA event pair instead of waiting, and gets
+    ``device_ms`` once the fold has waited (:meth:`Span.device_time`:
+    stream time, an upper bound of the chunk's device time).  §III-E
+    striped chunks get a per-stripe timing probe
+    (:func:`_probe_stripe_times`) whose sums fill the returned plan's
+    ``stripe_times``.  With ``REPRO_CHECK=1`` each chunk's partial goes
+    through :func:`repro_torch.check.runtime.check_partial` before the
+    fold (one read of its min and max per chunk).
     """
     if kind not in CAPABILITIES:
         raise ValueError(f"unknown workload kind {kind!r}")
     trc = obs.active()
-    t0 = time.perf_counter()
-    plan = backend.plan(work, budget, bucket_pow2=bucket_pow2)
-    timings = {"plan": time.perf_counter() - t0, "execute": 0.0, "fold": 0.0}
+    with obs.span("engine.plan", cat="engine"):
+        t0 = time.perf_counter()
+        plan = backend.plan(work, budget, bucket_pow2=bucket_pow2)
+        timings = {"plan": time.perf_counter() - t0, "execute": 0.0, "fold": 0.0}
     adj = _DeviceAdj(work.row_offsets, work.col, work.out_degree, work.n_steps)
     san = check_runtime if check_runtime.enabled() else None  # read per call: tests toggle it
     obs.counter("engine.workloads").add()
@@ -962,14 +975,16 @@ def run_workload(
     stripe_acc: list | None = None
 
     def launch(fn, chunk, i, *extra):
-        """One chunk launch, span-wrapped (and synced) when tracing."""
+        """One chunk launch, span-wrapped (CUDA-event-timed) when tracing."""
         nonlocal stripe_acc
         if trc is None:
             return fn(adj, chunk, *extra)
-        with trc.span(f"{kind}.chunk", cat="engine",
-                      args={"chunk": i,
-                            "buffer": int(getattr(chunk, "buffer", 0))}) as sp:
-            part = sp.sync(fn(adj, chunk, *extra))
+        args = {"chunk": i, "buffer": int(getattr(chunk, "buffer", 0))}
+        if isinstance(chunk, PanelChunk):
+            args.update(width=int(chunk.width), rows=len(chunk.u))
+        with trc.span(f"{kind}.chunk", cat="engine", args=args) as sp, \
+                sp.device_time(adj.device):
+            part = fn(adj, chunk, *extra)
         if isinstance(chunk, StripedChunk):
             times = _probe_stripe_times(trc, backend, adj, chunk)
             stripe_acc = [0.0] * len(times) if stripe_acc is None else stripe_acc
@@ -978,33 +993,34 @@ def run_workload(
         return part
 
     t0 = time.perf_counter()
-    if kind == "count":
-        partials = [
-            launch(backend.count_chunk, chunk, i) for i, chunk in enumerate(plan.chunks)
-        ]
-        if san is not None:
-            san.check_partials(partials, kind="count")
-        timings["execute"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        value = accumulate_partials(partials)
-    else:
-        if kind == "per_node":
-            n = adj.row_offsets.shape[0] - 1 if n_out is None else n_out
-            fn = backend.per_node_chunk
-        else:
-            n = int(work.src_host.shape[0])
-            fn = backend.support_chunk
-        lead = backend.mesh.lead if isinstance(backend, DistributedBackend) else adj.device
-        acc = torch.zeros((n,), dtype=torch.int64, device=lead)
-        for i, chunk in enumerate(plan.chunks):
-            part = launch(fn, chunk, i, n)
+    with obs.span("engine.launch", cat="engine"):
+        if kind == "count":
+            partials = [
+                launch(backend.count_chunk, chunk, i) for i, chunk in enumerate(plan.chunks)
+            ]
             if san is not None:
-                san.check_partial(part, kind=kind, context=f"chunk {i}")
-            acc += part
-        timings["execute"] = time.perf_counter() - t0
+                san.check_partials(partials, kind="count")
+        else:
+            if kind == "per_node":
+                n = adj.row_offsets.shape[0] - 1 if n_out is None else n_out
+                fn = backend.per_node_chunk
+            else:
+                n = int(work.src_host.shape[0])
+                fn = backend.support_chunk
+            lead = backend.mesh.lead if isinstance(backend, DistributedBackend) else adj.device
+            acc = torch.zeros((n,), dtype=torch.int64, device=lead)
+            for i, chunk in enumerate(plan.chunks):
+                part = launch(fn, chunk, i, n)
+                if san is not None:
+                    san.check_partial(part, kind=kind, context=f"chunk {i}")
+                acc += part
+    timings["execute"] = time.perf_counter() - t0
+    with obs.span("engine.fold", cat="engine"):
         t0 = time.perf_counter()
-        value = acc.cpu().numpy()
-    timings["fold"] = time.perf_counter() - t0
+        value = accumulate_partials(partials) if kind == "count" else acc.cpu().numpy()
+        timings["fold"] = time.perf_counter() - t0
+    if trc is not None:
+        trc.settle()  # the fold has waited: every chunk's event pair is complete
     return value, plan._replace(
         timings=timings, stripe_times=tuple(stripe_acc) if stripe_acc else None
     )
@@ -1193,7 +1209,7 @@ class TriangleCounter:
             csr, prep_s = self._prepare_timed(edges, n_nodes)
             if csr is None:
                 return 0
-            return self._run(csr, "count", self._resolve(csr), prep_s)
+            return self._run(csr, "count", prep_s)
 
     def per_node(self, edges, n_nodes: int | None = None) -> np.ndarray:
         """Per-vertex triangle incidences, int64 host array."""
@@ -1203,7 +1219,7 @@ class TriangleCounter:
             if csr is None:
                 n = n_nodes if n_nodes is not None else getattr(edges, "n_nodes", 0) or 0
                 return np.zeros((n,), np.int64)
-            return self._run(csr, "per_node", self._resolve(csr), prep_s)
+            return self._run(csr, "per_node", prep_s)
 
     def edge_support(self, edges, n_nodes: int | None = None) -> np.ndarray:
         """Per-directed-edge triangle support, int64 host array.
@@ -1216,17 +1232,20 @@ class TriangleCounter:
             csr, prep_s = self._prepare_timed(edges, n_nodes)
             if csr is None:
                 return np.zeros((0,), np.int64)
-            return self._run(csr, "support", self._resolve(csr), prep_s)
+            return self._run(csr, "support", prep_s)
 
     def clustering(self, edges, n_nodes: int | None = None) -> np.ndarray:
         """Local clustering coefficients c(v) = 2·T(v) / (deg(v)·(deg(v)−1))."""
         from repro_torch.analytics.metrics import clustering_from_counts
 
-        deg, n_nodes = degree_histogram(edges, n_nodes)
-        if deg.size == 0:
-            return np.zeros((n_nodes,), np.float64)
-        tri = self.per_node(edges, n_nodes)
-        return clustering_from_counts(tri, deg)
+        with obs.span("engine.clustering", cat="engine"):
+            with obs.span("engine.degrees", cat="engine"):
+                deg, n_nodes = degree_histogram(edges, n_nodes)
+            if deg.size == 0:
+                return np.zeros((n_nodes,), np.float64)
+            tri = self.per_node(edges, n_nodes)
+            with obs.span("engine.lcc_finish", cat="engine"):
+                return clustering_from_counts(tri, deg)
 
     def transitivity(self, edges, n_nodes: int | None = None) -> float:
         """Global transitivity ratio 3·#triangles / #wedges."""
@@ -1270,14 +1289,18 @@ class TriangleCounter:
             backend=self.device.type,
         )
 
-    def _run(self, csr: OrientedCSR, kind: str, resolved: str, prep_s: float = 0.0):
-        """Dispatch one workload through the capability-resolved backend."""
-        backend, executed, reason = resolve_backend(
-            resolved, kind, widths=self.widths, tuner=self.tuner,
-            mesh=self.mesh, shorter_side=self.shorter_side,
-        )
+    def _run(self, csr: OrientedCSR, kind: str, prep_s: float = 0.0):
+        """Resolve the method, build the workload and run it, each phase a span."""
+        with obs.span("engine.resolve", cat="engine"):
+            resolved = self._resolve(csr)
+            backend, executed, reason = resolve_backend(
+                resolved, kind, widths=self.widths, tuner=self.tuner,
+                mesh=self.mesh, shorter_side=self.shorter_side,
+            )
+        with obs.span("engine.workload", cat="engine"):
+            work = workload_from_csr(csr)
         value, plan = run_workload(
-            backend, kind, workload_from_csr(csr),
+            backend, kind, work,
             budget=self.max_wedge_chunk,
             n_out=csr.n_nodes if kind == "per_node" else None,
         )

@@ -3,9 +3,11 @@
 The observability layer the timing claims rest on (§V of the paper is
 *all* timings).  Three pieces:
 
-* :mod:`repro_torch.obs.tracer` — hierarchical spans with explicit
-  ``torch.cuda.synchronize`` sync points (device time, not async dispatch),
-  near-zero cost when disabled.
+* :mod:`repro_torch.obs.tracer` — hierarchical spans that measure device
+  time, not async dispatch (an explicit ``torch.cuda.synchronize``, or a
+  CUDA event pair read after a later wait), near-zero cost when disabled;
+  while ``torch.profiler`` records, each span is also a ``record_function``
+  range on the profiler's clock.
 * :mod:`repro_torch.obs.counters` — process-wide counters/gauges (chunks
   launched, wedges planned, cache hits, capability fallbacks).
 * :mod:`repro_torch.obs.export` — Chrome trace-event JSON (Perfetto-viewable)
@@ -20,11 +22,14 @@ Typical CLI wiring::
 
 and in engine code wrapping device work::
 
-    with obs.span("count.chunk", cat="engine") as sp:
-        part = sp.sync(backend.count_chunk(adj, chunk))
+    with trc.span("count.chunk", cat="engine") as sp, sp.device_time(device):
+        part = backend.count_chunk(adj, chunk)
+    ...                  # the fold waits for the device
+    trc.settle()         # each chunk span's args gain "device_ms"
 
 Importing this package never imports torch (the validators stay
-stdlib-only); ``Span.sync`` imports it lazily.
+stdlib-only); the tracer finds torch in ``sys.modules`` or imports it
+lazily.
 """
 from .counters import (
     Counter,
@@ -56,7 +61,6 @@ from .tracer import (
     span,
     start_tracing,
     stop_tracing,
-    sync,
     tracing,
 )
 
@@ -83,7 +87,6 @@ __all__ = [
     "span",
     "start_tracing",
     "stop_tracing",
-    "sync",
     "to_chrome_trace",
     "to_jsonl_records",
     "trace_to_file",

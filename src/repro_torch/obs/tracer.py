@@ -5,23 +5,37 @@ under 10 s), so the repo needs a way to attribute a run's wall clock to
 its phases.  This module is the core of that layer: a context-manager
 span API producing nested, exportable timing events.
 
-Three design constraints shape everything here:
+Four design constraints shape everything here:
 
 * **Near-zero cost when disabled.**  Tracing is off by default; the hot
-  path (``obs.span(...)`` in ``run_workload``'s chunk loop) must then
-  cost one module-global read and allocate nothing.  ``span()`` returns
-  the shared :data:`NOOP_SPAN` singleton when no tracer is active — the
-  disabled path never constructs an object.
+  path (``obs.span(...)`` around each engine phase) must then cost one
+  module-global read and one check that ``torch.profiler`` is not
+  recording, and allocate nothing.  ``span()`` returns the shared
+  :data:`NOOP_SPAN` singleton then — the disabled path never constructs
+  an object.
+* **Spans reach the profiler's clock.**  While ``torch.profiler`` records,
+  every span also opens a ``record_function`` range of its name and closes
+  it with the span, with or without an active :class:`Tracer`.  Kineto
+  records those ranges on the clock and thread of the CUDA activities, so
+  a profiled run names each phase beside the device's work.  A range
+  never waits for the device: the profiler alone does not change the
+  schedule.
 * **Spans measure device time, not async dispatch.**  CUDA launches
-  return before the card finishes: wrapping a ``backend.count_chunk``
-  call in a naive timer measures enqueue latency while the actual compute
-  lands in whichever later operation blocks (usually the host fold).  A
-  span wrapping device work must therefore call :meth:`Span.sync` (which
-  is ``torch.cuda.synchronize()`` under an active tracer when the value
-  holds a CUDA tensor, and the identity otherwise) before it closes.
-* **Import-time stdlib-only.**  ``torch`` is imported lazily inside
-  ``sync`` (and the launch auditor inside ``start_tracing``) so the
-  exporters and validators run in torch-free contexts.
+  return before the card finishes: a naive timer around a launch measures
+  enqueue latency while the compute lands in whichever later operation
+  blocks (usually the host fold).  Under an active tracer a span over
+  device work either waits before it closes (:meth:`Span.sync`:
+  ``torch.cuda.synchronize()`` when the value holds a CUDA tensor, the
+  identity otherwise), or brackets the work in a CUDA event pair
+  (:meth:`Span.device_time`) whose elapsed ``device_ms`` the tracer writes
+  into the span's args (:meth:`Tracer.settle`) once the caller has waited
+  for the device anyway.  The engine's chunk spans take the event route,
+  so chunks stay unserialised.
+* **Import-time stdlib-only.**  ``torch`` is looked up in ``sys.modules``
+  (the profiler check and its ranges: a process that never imported torch
+  has no profiler running) or imported lazily (``sync``, the event pairs,
+  the launch auditor inside ``start_tracing``), so the exporters and
+  validators run in torch-free contexts.
 
 Events are recorded as plain dicts (``name``/``cat``/``ts_ns``/
 ``dur_ns``/``depth``/``args``) relative to the tracer's origin, ready
@@ -39,6 +53,7 @@ empty.  Unlike the reference, a failure of the auditor is not swallowed.
 from __future__ import annotations
 
 import contextlib
+import sys
 import time
 
 __all__ = [
@@ -50,9 +65,23 @@ __all__ = [
     "span",
     "start_tracing",
     "stop_tracing",
-    "sync",
     "tracing",
 ]
+
+
+def _profiling() -> bool:
+    """Is ``torch.profiler`` recording on this thread?"""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch._C._autograd._profiler_enabled()
+
+
+def _open_range(name: str):
+    """An entered ``record_function(name)`` while the profiler records, else None."""
+    if not _profiling():
+        return None
+    rf = sys.modules["torch"].autograd.profiler.record_function(name)
+    rf.__enter__()
+    return rf
 
 
 class Span:
@@ -61,11 +90,12 @@ class Span:
     Records an event on ``__exit__`` even when the body raises (the
     event then carries an ``error`` key) — a crash mid-phase still
     leaves a closed, exportable span.  Call :meth:`sync` on any value
-    backed by device computation before the span closes, so the span
-    measures compute rather than async dispatch.
+    backed by device computation before the span closes, or bracket the
+    work in :meth:`device_time`, so the span measures compute rather than
+    async dispatch.
     """
 
-    __slots__ = ("_tracer", "name", "cat", "args", "_t0", "_depth")
+    __slots__ = ("_tracer", "name", "cat", "args", "_t0", "_depth", "_range", "_marks")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, args):
         self._tracer = tracer
@@ -74,16 +104,21 @@ class Span:
         self.args = dict(args) if args else None
         self._t0 = 0
         self._depth = 0
+        self._range = None
+        self._marks = None
 
     def __enter__(self) -> "Span":
         t = self._tracer
         self._depth = t._depth
         t._depth += 1
+        self._range = _open_range(self.name)
         self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         t1 = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         t = self._tracer
         t._depth = self._depth
         event = {
@@ -98,6 +133,8 @@ class Span:
         if exc_type is not None:
             event["error"] = exc_type.__name__
         t.events.append(event)
+        if self._marks is not None:
+            t._pending.append((event, *self._marks))
         return False
 
     def sync(self, value):
@@ -107,6 +144,32 @@ class Span:
         produced ``value`` instead of just its dispatch.
         """
         return _block_until_ready(value)
+
+    @contextlib.contextmanager
+    def device_time(self, device):
+        """Bracket the body's device work in a CUDA event pair, without a wait.
+
+        The pair is recorded on ``device``'s current stream before and
+        after the body; :meth:`Tracer.settle`, called once the caller has
+        waited for that stream, writes the milliseconds between them into
+        the span's args as ``device_ms``.  That is stream time between the
+        two markers: the body's device work plus any time the stream sat
+        idle between them (waiting on the host's next enqueue), so an
+        upper bound of the body's device time.  On a device that is not
+        CUDA nothing is recorded and the span has no ``device_ms``.
+        """
+        if getattr(device, "type", None) != "cuda":
+            yield
+            return
+        import torch
+
+        stream = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        yield
+        end.record(stream)
+        self._marks = (start, end)
 
     def set(self, **kwargs) -> "Span":
         """Attach/overwrite args on the span (shows up in exports)."""
@@ -142,6 +205,25 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
+class _RangeSpan(_NoopSpan):
+    """A span with no tracer while ``torch.profiler`` records: one
+    ``record_function`` range of its name, nothing else (no event, no
+    wait)."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, name: str):
+        self._range = sys.modules["torch"].autograd.profiler.record_function(name)
+
+    def __enter__(self) -> "_RangeSpan":
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self._range.__exit__(exc_type, exc, tb)
+        return False
+
+
 def _holds_cuda(value) -> bool:
     """Does ``value`` (a tensor or a tuple/list/dict of them) live on CUDA?"""
     if isinstance(value, (tuple, list)):
@@ -174,28 +256,24 @@ class Tracer:
         self.jit_traces: dict[str, int] = {}
         self._origin_ns = time.perf_counter_ns()
         self._depth = 0
+        self._pending: list[tuple] = []  # (event, start, end) of Span.device_time
         self._audit_compiles = audit_compiles
         self._auditor = None
 
     def span(self, name: str, cat: str = "", args=None) -> Span:
         return Span(self, name, cat, args)
 
-    def instant(self, name: str, cat: str = "", args=None) -> None:
-        """Record a zero-duration marker event."""
-        event = {
-            "name": name,
-            "cat": cat,
-            "ts_ns": time.perf_counter_ns() - self._origin_ns,
-            "dur_ns": 0,
-            "depth": self._depth,
-        }
-        if args:
-            event["args"] = dict(args)
-        self.events.append(event)
+    def settle(self) -> None:
+        """Write ``device_ms`` into every span whose event pair is pending.
 
-    def wall_s(self) -> float:
-        """Seconds from the tracer's origin to now (or to the last event)."""
-        return (time.perf_counter_ns() - self._origin_ns) / 1e9
+        Call after a wait on the streams the pairs lie on (the engine
+        calls it after its fold): each end event is then complete, and
+        waiting on it returns at once.
+        """
+        pending, self._pending = self._pending, []
+        for event, start, end in pending:
+            end.synchronize()
+            event.setdefault("args", {})["device_ms"] = start.elapsed_time(end)
 
     # -- lifecycle (driven by start_tracing/stop_tracing) -------------------
 
@@ -209,6 +287,7 @@ class Tracer:
         self._origin_ns = time.perf_counter_ns()
 
     def _finish(self) -> None:
+        self.settle()
         if self._auditor is None:
             return
         auditor, self._auditor = self._auditor, None
@@ -220,7 +299,7 @@ class Tracer:
 #
 # One active tracer per process, mirroring how the engine's stats and
 # fallback warnings are process-global.  The disabled fast path is a
-# single global read.
+# single global read and the profiler check.
 
 _ACTIVE: Tracer | None = None
 
@@ -235,18 +314,14 @@ def enabled() -> bool:
 
 
 def span(name: str, cat: str = "", args=None):
-    """A span on the active tracer, or :data:`NOOP_SPAN` when disabled."""
+    """A span on the active tracer; with none, a profiler range while
+    ``torch.profiler`` records, else :data:`NOOP_SPAN`."""
     t = _ACTIVE
-    if t is None:
-        return NOOP_SPAN
-    return t.span(name, cat, args)
-
-
-def sync(value):
-    """Block on ``value`` iff tracing is active (free otherwise)."""
-    if _ACTIVE is None:
-        return value
-    return _block_until_ready(value)
+    if t is not None:
+        return t.span(name, cat, args)
+    if _profiling():
+        return _RangeSpan(name)
+    return NOOP_SPAN
 
 
 def start_tracing(tracer: Tracer | None = None) -> Tracer:
@@ -265,7 +340,8 @@ def start_tracing(tracer: Tracer | None = None) -> Tracer:
 
 
 def stop_tracing() -> Tracer | None:
-    """Uninstall the active tracer (folding in the launch-signature counts)."""
+    """Uninstall the active tracer (settling its event pairs and folding
+    in the launch-signature counts)."""
     global _ACTIVE
     t, _ACTIVE = _ACTIVE, None
     if t is not None:

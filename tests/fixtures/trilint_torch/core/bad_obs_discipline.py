@@ -4,7 +4,8 @@ Parsed, never imported.  The first two spans wrap device work (a CSR kernel
 wrapper, the stripe body) but close without a sync point — CUDA launches
 are asynchronous, so such a span measures enqueue latency, not device time.
 The others sync (``sp.sync``, ``torch.cuda.synchronize``, a ``.cpu()`` host
-read) or wrap host work only, and are compliant.
+read), time the work with a CUDA event pair (``sp.device_time``), or wrap
+host work only, and are compliant.
 """
 
 import torch
@@ -31,6 +32,12 @@ def _stripe_body(kind, *args):  # stand-in (naming convention)
 def synced_span(obs, ops, row, col, u, v, width):
     with obs.span("count.chunk", cat="engine") as sp:
         part = sp.sync(ops.intersect_count_csr(row, col, u, v, width))
+    return part
+
+
+def event_pair(obs, ops, row, col, u, v, width):
+    with obs.span("count.chunk", cat="engine") as sp, sp.device_time(row.device):
+        part = ops.intersect_count_csr(row, col, u, v, width)
     return part
 
 

@@ -132,6 +132,9 @@ def test_cli_trace_export_validates(tmp_path, monkeypatch, capsys):
     assert obs.validate_chrome_trace(trace) > 0
     chunk_spans = [e for e in trace["traceEvents"] if e.get("name") == "count.chunk"]
     assert len(chunk_spans) == result["stats"]["n_chunks"] > 1
+    for e in chunk_spans:  # panel chunks carry their shape; no CUDA event pair on the CPU
+        assert e["args"]["width"] > 0 and e["args"]["rows"] > 0, e
+        assert "device_ms" not in e["args"], e
     assert trace["otherData"]["env"]["torch"] == torch.__version__
     assert not obs.enabled()
 

@@ -80,7 +80,7 @@ def test_pass_flags_torch_fixture(passname, fixture, expected):
         ("codec", "core/bad_codec.py", {"unguarded_to", "unguarded_int", "unguarded_tensor"},
          {"guarded_to"}),
         ("obs_discipline", "core/bad_obs_discipline.py", {"unsynced_csr", "unsynced_stripe"},
-         {"synced_span", "synchronized", "host_read", "host_only"}),
+         {"synced_span", "event_pair", "synchronized", "host_read", "host_only"}),
         ("collectives", "core/bad_collectives.py",
          {"stripes_of", "count_fn_for", "rank_dependent", "default_axes"},
          {"merged", "edge_stripes", "named_mesh", "replicated"}),
