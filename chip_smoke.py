@@ -740,8 +740,10 @@ def real_chunks(csr, budget):
 
 
 def chunk_tensors(csr, chunk):
-    """The chunk's u, v and query edge ids on the card."""
-    return [torch.from_numpy(x).to(csr.device) for x in (chunk.u, chunk.v, chunk.edge_idx)]
+    """The chunk's u, v and query edge ids: the plan's int32 tensors on the card."""
+    check(all(x.device == csr.device for x in (chunk.u, chunk.v, chunk.edge_idx)),
+          f"a width-{chunk.width} chunk is not on {csr.device}")
+    return [chunk.u, chunk.v, chunk.edge_idx]
 
 
 def gather(csr, chunk):
@@ -825,6 +827,14 @@ def run_engine(kind, edges, method, budget, reset=True):
     return value, tc.last_stats, seconds, dict(launches)
 
 
+def chunk_uploads() -> int:
+    """The engine's ``engine.chunk_uploads`` counter: chunk arrays that
+    ``_DeviceAdj.put`` had to copy or convert (0 on the panel plan's routes)."""
+    from repro_torch import obs
+
+    return int(obs.metrics_snapshot()["counters"].get("engine.chunk_uploads", 0))
+
+
 def phase_kron13():
     from repro_torch.graphs import kronecker_rmat
 
@@ -899,14 +909,19 @@ def phase_kron21(edges, csr):
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        uploads = chunk_uploads()
         value, st, sec, ln = run_engine(kind, graph, method, budget)
+        uploads = chunk_uploads() - uploads
         got = value if kind == "count" else int(value.sum())
         check(got == expect, f"kron-21 {kind} {method} {budget}: {got} != {expect}")
+        want_uploads = 2 * st.n_chunks if st.method == "wedge_bsearch" and st.n_chunks > 1 else 0
+        check(uploads == want_uploads, f"kron-21 {kind} {method} {budget}: {uploads} chunk "
+                                       f"uploads, expected {want_uploads}")
         rec = {"kind": kind, "method": method, "resolved_method": st.resolved_method,
                "executed": st.method, "budget": budget, "value": got,
                "input": "edges" if graph is edges else "oriented CSR",
                "n_chunks": st.n_chunks, "peak_wedge_buffer": st.peak_wedge_buffer,
-               "seconds": sec, "timings": st.timings, "launches": ln,
+               "seconds": sec, "timings": st.timings, "launches": ln, "chunk_uploads": uploads,
                "peak_device_bytes": torch.cuda.max_memory_allocated(),
                "peak_above_resident_bytes": torch.cuda.max_memory_allocated() - base,
                "resident_bytes": base}

@@ -183,9 +183,10 @@ class EngineStats:
     largest buffer a launch materialized; ``wedge_budget`` the requested
     budget.  ``timings`` splits the call's wall clock into
     ``preprocess`` / ``plan`` / ``execute`` / ``fold`` seconds of host
-    clock; launches are asynchronous, so ``preprocess`` and ``execute``
-    end before their device work does, and device time bills to whatever
-    waits next (``fold``, or the next phase).  The host/device split is
+    clock; launches are asynchronous, so ``preprocess``, ``plan`` (at its
+    last read of a bucket size) and ``execute`` end before their device
+    work does, and device time bills to whatever waits next (``fold``, or
+    the next phase).  The host/device split is
     the phase spans (``engine.preprocess``, ``.resolve``, ``.workload``,
     ``.plan``, ``.launch``, ``.fold``) read beside a ``torch.profiler``
     trace of the device.
@@ -371,7 +372,8 @@ class Workload(NamedTuple):
     ``(src_e[i], dst_e[i])`` is query edge ``i``; −1 slots are padding.
     ``row_offsets``/``col``/``out_degree`` (tensors on the run's device)
     describe the adjacency rows the queries intersect.  The ``*_host``
-    fields are numpy copies used for planning.
+    fields are numpy copies that the wedge and §III-E planners read; the
+    panel planner reads the tensors.
     """
 
     row_offsets: torch.Tensor
@@ -396,7 +398,7 @@ def _int32_on(x, dev: torch.device) -> torch.Tensor:
 def make_workload(
     row_offsets, col, out_degree, src_e, dst_e, n_steps: int | None = None, *, device=None
 ) -> Workload:
-    """Build a :class:`Workload` (host copies for planning are taken here).
+    """Build a :class:`Workload` (its numpy host copies are taken here).
 
     Without ``device`` the five arrays are the run's device tensors.  With
     it they may be numpy arrays or tensors, and each goes to ``device``
@@ -440,7 +442,14 @@ class _DeviceAdj(NamedTuple):
         return self.col.device
 
     def put(self, arr) -> torch.Tensor:
-        """A host int32 chunk array as a tensor on the adjacency's device."""
+        """A chunk array as an int32 tensor on the adjacency's device.
+
+        An int32 tensor already there is returned as it is; anything else
+        is copied or converted, and counted in ``engine.chunk_uploads``.
+        """
+        if not (isinstance(arr, torch.Tensor) and arr.dtype == torch.int32
+                and arr.device == self.device):
+            obs.counter("engine.chunk_uploads").add()
         return _int32_on(arr, self.device)
 
 
@@ -454,11 +463,12 @@ class WedgeChunk(NamedTuple):
 
 
 class PanelChunk(NamedTuple):
-    """One width-bucket slice of the query edge list (−1 padded)."""
+    """One width-bucket slice of the query edge list (−1 padded): int32
+    1-D tensors on the workload's device."""
 
-    edge_idx: np.ndarray  # global query ids
-    u: np.ndarray
-    v: np.ndarray
+    edge_idx: torch.Tensor  # global query ids
+    u: torch.Tensor
+    v: torch.Tensor
     width: int
 
 
@@ -622,38 +632,50 @@ class PanelBackend(KernelBackend):
         return tuple(ws)
 
     def plan(self, work: Workload, budget: int | None, *, bucket_pow2: bool = False) -> WorkPlan:
-        src, dst, deg = work.src_host, work.dst_host, work.deg_host
+        """Bucket the query edges by ``max(deg u, deg v)`` and slice each bucket.
+
+        Torch ops on the workload's tensors: on the card only ``need.max()``,
+        the wedge total and each bucket's size are read back.  A bucket is one
+        −1-filled ``(n_slices, rows)`` tensor of query ids (ascending within
+        the bucket) with its ``u`` and ``v`` taken once; its chunks are the
+        rows, int32 views that :meth:`_DeviceAdj.put` passes through.
+        """
+        src, dst, deg = work.src_e, work.dst_e, work.out_degree
         ensure_fits_int32(src.shape[0], "panel query edge count")
         valid = (src >= 0) & (dst >= 0)
-        du = np.where(valid, deg[np.maximum(src, 0)], 0).astype(np.int64)
-        dv = np.where(valid, deg[np.maximum(dst, 0)], 0).astype(np.int64)
-        need = np.maximum(du, dv)
-        total_wedges = int(du.sum(dtype=np.int64))
+        du = torch.where(valid, deg.index_select(0, src.clamp(min=0)), 0)
+        dv = torch.where(valid, deg.index_select(0, dst.clamp(min=0)), 0)
+        need = torch.maximum(du, dv)
+        total_wedges = int(du.sum(dtype=torch.int64))
 
-        def take(arr, sl):
-            return np.where(sl >= 0, arr[np.maximum(sl, 0)], -1).astype(np.int32)
+        def take(arr, ids):
+            got = arr.index_select(0, ids.clamp(min=0).view(-1)).view(ids.shape)
+            return torch.where(ids >= 0, got, -1).to(torch.int32)
 
         chunks: list[PanelChunk] = []
         peak = 0
         lo = 0
-        for w in self._ladder(int(need.max()) if need.size else 0):
-            mask = (need > lo) & (need <= w)
+        for w in self._ladder(int(need.max()) if need.numel() else 0):
+            idx = torch.nonzero((need > lo) & (need <= w)).squeeze(1).to(torch.int32)
             lo = w
-            idx = np.nonzero(mask)[0].astype(np.int32)
-            if not idx.size:
+            n = idx.shape[0]
+            if not n:
                 continue
-            per = len(idx) if budget is None else max(1, int(budget) // w)
-            n_slices = -(-len(idx) // per)
-            for s in range(0, len(idx), per):
-                sl = idx[s : s + per]
-                rows = per if n_slices > 1 else len(sl)
-                if bucket_pow2:
-                    rows = next_pow2(rows)
-                pad = rows - len(sl)
-                if pad:
-                    sl = np.concatenate([sl, np.full(pad, -1, np.int32)])
-                chunks.append(PanelChunk(sl, take(src, sl), take(dst, sl), w))
-                peak = max(peak, rows * w)
+            per = n if budget is None else max(1, int(budget) // w)
+            n_slices = -(-n // per)
+            cols = min(per, n)
+            rows = per if n_slices > 1 else n
+            if bucket_pow2:
+                rows = next_pow2(rows)
+            flat = idx.new_full((n_slices * cols,), -1)
+            flat[:n] = idx
+            ids = idx.new_full((n_slices, rows), -1)
+            ids[:, :cols] = flat.view(n_slices, cols)
+            chunks += (
+                PanelChunk(e, u, v, w)
+                for e, u, v in zip(ids.unbind(), take(src, ids).unbind(), take(dst, ids).unbind())
+            )
+            peak = max(peak, rows * w)
 
         return WorkPlan(iter(chunks), len(chunks), peak, total_wedges)
 

@@ -441,6 +441,55 @@ def test_pow2_plans_equal_reference(graphs, planner, bucket_pow2, budget, tail):
         assert got.peak_buffer & (got.peak_buffer - 1) == 0 or planner == "panel"
 
 
+class _Unread:
+    """Stands in for a workload's host copy that must not be read."""
+
+    def _refuse(self, *_, **__):
+        raise AssertionError("the panel plan read a host copy")
+
+    __getattr__ = __getitem__ = __array__ = __len__ = __iter__ = _refuse
+    __lt__ = __le__ = __gt__ = __ge__ = __eq__ = __ne__ = _refuse
+
+
+@pytest.mark.parametrize("tail", [0, 29])
+@pytest.mark.parametrize("budget", [None, 48, 300])
+@pytest.mark.parametrize("bucket_pow2", [False, True])
+@pytest.mark.parametrize("backend", ["PanelBackend", "PallasBackend"])
+def test_panel_plan_reads_no_host_copy(graphs, backend, bucket_pow2, budget, tail):
+    """The panel plan runs on the workload's tensors alone and still
+    equals the reference's host plan, field by field."""
+    ref_w, port_w = _workloads(graphs["kron"], tail)
+    port_w = port_w._replace(src_host=_Unread(), dst_host=_Unread(), deg_host=_Unread())
+    want = ref_engine.PanelBackend().plan(ref_w, budget, bucket_pow2=bucket_pow2)
+    got = getattr(engine, backend)().plan(port_w, budget, bucket_pow2=bucket_pow2)
+    assert (got.n_chunks, got.peak_buffer, got.total_wedges) == (
+        want.n_chunks, want.peak_buffer, want.total_wedges)
+    got_chunks, want_chunks = list(got.chunks), list(want.chunks)
+    assert len(got_chunks) == len(want_chunks) == want.n_chunks > 0
+    for g, w in zip(got_chunks, want_chunks):
+        assert g.width == w.width
+        for f in ("edge_idx", "u", "v"):
+            np.testing.assert_array_equal(getattr(g, f).numpy(), np.asarray(getattr(w, f)), f)
+
+
+@pytest.mark.parametrize("budget", [None, 48])
+@pytest.mark.parametrize("bucket_pow2", [False, True])
+def test_panel_chunks_are_int32_device_tensors(graphs, bucket_pow2, budget):
+    """Every chunk field is an int32, contiguous, 1-D tensor on the
+    workload's device, so the launch loop passes it on uncopied."""
+    _, work = _workloads(graphs["kron"], 29)
+    plan = engine.PallasBackend().plan(work, budget, bucket_pow2=bucket_pow2)
+    chunks = list(plan.chunks)
+    assert len(chunks) == plan.n_chunks > 0
+    adj = engine._DeviceAdj(work.row_offsets, work.col, work.out_degree, work.n_steps)
+    for c in chunks:
+        for f in ("edge_idx", "u", "v"):
+            t = getattr(c, f)
+            assert isinstance(t, torch.Tensor) and t.dtype == torch.int32, f
+            assert t.dim() == 1 and t.is_contiguous() and t.device == work.src_e.device, f
+            assert adj.put(t) is t, f
+
+
 @pytest.mark.parametrize("budget", [None, 48, 300])
 @pytest.mark.parametrize("bucket_pow2", [False, True])
 def test_iter_wedge_chunks_equals_reference(graphs, bucket_pow2, budget):

@@ -268,6 +268,24 @@ def test_capability_fallback_is_loud_and_not_sticky(graphs, monkeypatch):
     assert tc.last_stats.method == "count_only"
 
 
+@pytest.mark.parametrize("method,kind", [("pallas", "count"), ("pallas", "per_node"),
+                                         ("pallas", "edge_support"),
+                                         ("wedge_bsearch", "count")])
+def test_chunk_uploads_counter(graphs, method, kind):
+    """The panel plan's chunks are device tensors already, so the pallas
+    route copies none; the sliced wedge route uploads src and dst a chunk."""
+    from repro_torch import obs
+
+    tc = TriangleCounter(method=method, max_wedge_chunk=48, device="cpu")
+    obs.reset_metrics()
+    with obs.tracing():
+        getattr(tc, kind)(graphs["kron"])
+    uploads = obs.metrics_snapshot()["counters"].get("engine.chunk_uploads", 0)
+    n_chunks = tc.last_stats.n_chunks
+    assert n_chunks > 1
+    assert uploads == (0 if method == "pallas" else 2 * n_chunks)
+
+
 @pytest.mark.cuda
 def test_oriented_csr_on_the_card_is_reused(graphs):
     """A CSR built with the default device lies on ``cuda:0``; a counter
